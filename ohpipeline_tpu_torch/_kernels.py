@@ -1,0 +1,157 @@
+"""Build, bind and launch the port's hand-written CUDA kernels.
+
+At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+one shared library under ``_build/`` (named by a hash of the sources, so an
+edited source rebuilds), which is loaded with ``ctypes``.  Each kernel has a
+plain C entry point that launches on the caller's stream and returns
+``cudaGetLastError()``; the wrappers here check their tensors, launch on
+``torch.cuda.current_stream()``, raise on a non-zero return and count the
+launch in :data:`launches`.  Nothing falls back: a missing ``nvcc`` or a
+failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_DIR = pathlib.Path(__file__).resolve().parent
+_SRC = _DIR / "csrc"
+_BUILD = _DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: Kernel launches per wrapper since the last :func:`reset_launches`.
+launches = {"lpc": 0, "rice": 0}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+#: nvcc's output of the build this process loaded (register use, spills).
+build_log = ""
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def find_nvcc() -> str | None:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    return next((c for c in cands if c and os.access(c, os.X_OK)), None)
+
+
+def _build() -> ctypes.CDLL:
+    global build_log
+    sources = sorted(_SRC.glob("*.cu"))
+    digest = hashlib.sha1()
+    for src in sources:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    so = _BUILD / f"libohp_kernels-{digest.hexdigest()[:12]}.so"
+    if not so.exists():
+        nvcc = find_nvcc()
+        if nvcc is None:
+            raise RuntimeError("nvcc not found (set CUDA_HOME or PATH); the "
+                               "port's CUDA kernels cannot be built")
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                               *map(str, sources)],
+                              capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.ohp_lpc_synthesize.argtypes = [p, p, p, p, p, i32, i32, p]
+    lib.ohp_lpc_synthesize.restype = i32
+    lib.ohp_rice_decode_units.argtypes = [p, i64, p, p, p, p, p, i64, p]
+    lib.ohp_rice_decode_units.restype = i32
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _build()
+        return _lib
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+    if t.device != device or t.dtype != torch.int32 \
+            or not t.is_contiguous() or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: want contiguous int32 {shape} on {device},"
+                         f" got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def lpc(data: torch.Tensor, coeffs: torch.Tensor, shift: torch.Tensor,
+        order: torch.Tensor) -> torch.Tensor:
+    """``csrc/lpc.cu``: (B, N) int32 samples from (B, N) residuals with
+    warm-up, (B, 32) coefficients and (B,) shift and order, on the card."""
+    dev = data.device
+    if dev.type != "cuda":
+        raise ValueError(f"lpc kernel needs a CUDA tensor, got {dev}")
+    B, N = data.shape
+    _check("data", data, (B, N), dev)
+    _check("coeffs", coeffs, (B, 32), dev)
+    _check("shift", shift, (B,), dev)
+    _check("order", order, (B,), dev)
+    if B >= 2 ** 31 or N >= 2 ** 31:
+        raise ValueError(f"lpc kernel takes int32 extents, got {B}x{N}")
+    out = torch.empty_like(data)
+    lib = library()
+    with torch.cuda.device(dev):
+        rc = lib.ohp_lpc_synthesize(
+            data.data_ptr(), coeffs.data_ptr(), shift.data_ptr(),
+            order.data_ptr(), out.data_ptr(), B, N, _stream(dev))
+    _raise_on(rc, "lpc")
+    launches["lpc"] += 1
+    return out
+
+
+def rice(words: torch.Tensor, cur: torch.Tensor, kk: torch.Tensor,
+         mode: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """``csrc/rice.cu``: (U, 64) int32 residuals from the (W,) slab words
+    (big-endian u32 bit patterns held in int32) and (U,) per-unit cursor,
+    rice parameter, mode and count, on the card."""
+    dev = words.device
+    if dev.type != "cuda":
+        raise ValueError(f"rice kernel needs a CUDA tensor, got {dev}")
+    (W,), U = words.shape, cur.shape[0]
+    if W == 0:
+        raise ValueError("rice kernel needs a non-empty word slab")
+    _check("words", words, (W,), dev)
+    for name, t in (("cur", cur), ("kk", kk), ("mode", mode),
+                    ("counts", counts)):
+        _check(name, t, (U,), dev)
+    out = torch.empty((U, 64), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        rc = lib.ohp_rice_decode_units(
+            words.data_ptr(), W, cur.data_ptr(), kk.data_ptr(),
+            mode.data_ptr(), counts.data_ptr(), out.data_ptr(), U,
+            _stream(dev))
+    _raise_on(rc, "rice")
+    launches["rice"] += 1
+    return out

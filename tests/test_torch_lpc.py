@@ -1,0 +1,188 @@
+"""The port's LPC synthesis (ohpipeline_tpu_torch.ops.lpc) against the JAX
+package: the bigint oracle, the lax.scan path and the Pallas kernel in
+interpret mode, on the cases of tests/test_lpc.py.  Every comparison is
+bit-exact: the recurrence is integer.  The kernel itself runs only on the
+card (marker ``gpu``), against the plain version.
+
+JAX is imported inside the tests that compare with it, so that the ``gpu``
+tests also run where JAX is not installed."""
+
+import numpy as np
+import pytest
+import torch
+
+from ohpipeline_tpu_torch import _kernels
+from ohpipeline_tpu_torch.ops import lpc
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def random_case(rng, B, N, max_order=32, sample_bits=17, coeff_bits=15,
+                max_shift=15, fixed_shift=None):
+    """Random stable filters (sum|c| < 2^shift), as encoders emit them."""
+    data = rng.integers(-(1 << (sample_bits - 1)), 1 << (sample_bits - 1),
+                        (B, N), dtype=np.int64).astype(np.int32)
+    order = rng.integers(0, max_order + 1, (B,)).astype(np.int32)
+    coeffs = np.zeros((B, lpc.MAX_ORDER), np.int32)
+    shift = np.zeros((B,), np.int32)
+    for b in range(B):
+        o = order[b]
+        shift[b] = (fixed_shift if fixed_shift is not None
+                    else rng.integers(max(coeff_bits - 2, 1), max_shift + 1))
+        if o == 0:
+            continue
+        c = rng.integers(-(1 << (coeff_bits - 1)), 1 << (coeff_bits - 1),
+                         (o,)).astype(np.float64)
+        gain = np.abs(c).sum() / (1 << shift[b])
+        if gain > 0.9:
+            c = np.trunc(c * (0.9 / gain))
+        coeffs[b, :o] = c.astype(np.int32)
+    return data, coeffs, shift, order
+
+
+def _worst_case_accumulator(rng):
+    # order-32 filter, max-magnitude coeffs against max-magnitude 25-bit
+    # warm-up, two synthesised samples
+    B, N = 8, 34
+    data = np.zeros((B, N), np.int32)
+    data[:, :32] = (rng.integers(0, 2, (B, 32)) * 2 - 1) * ((1 << 24) - 1)
+    coeffs = ((rng.integers(0, 2, (B, 32)) * 2 - 1)
+              * ((1 << 14) - 1)).astype(np.int32)
+    return data, coeffs, np.full(B, 15, np.int32), np.full(B, 32, np.int32)
+
+
+def _fixed_predictors(rng):
+    B, N = 5, 40
+    data = rng.integers(-1000, 1000, (B, N)).astype(np.int32)
+    coeffs = np.zeros((B, lpc.MAX_ORDER), np.int32)
+    for b in range(B):
+        coeffs[b, :len(lpc.FIXED_COEFFS[b])] = lpc.FIXED_COEFFS[b]
+    return data, coeffs, np.zeros(B, np.int32), np.arange(5, dtype=np.int32)
+
+
+def _order_zero(rng):
+    B, N = 3, 16
+    z = np.zeros(B, np.int32)
+    return (rng.integers(-100, 100, (B, N)).astype(np.int32),
+            np.zeros((B, lpc.MAX_ORDER), np.int32), z, z)
+
+
+def _known_first_order(rng):
+    coeffs = np.zeros((1, lpc.MAX_ORDER), np.int32)
+    coeffs[0, 0] = 1
+    return (np.array([[5, 1, 2, 3, 4]], np.int32), coeffs,
+            np.zeros(1, np.int32), np.ones(1, np.int32))
+
+
+def _negative_floor(rng):
+    # c*s = -3, shift 1 -> -2 (toward -inf), not -1
+    coeffs = np.zeros((1, lpc.MAX_ORDER), np.int32)
+    coeffs[0, 0] = -1
+    return (np.array([[3, 0, 0, 0]], np.int32), coeffs,
+            np.ones(1, np.int32), np.ones(1, np.int32))
+
+
+CASES = {
+    "random": lambda rng: random_case(rng, B=16, N=64),
+    "24bit": lambda rng: random_case(rng, B=8, N=48, sample_bits=25),
+    "worst_case_accumulator": _worst_case_accumulator,
+    **{f"shift_{sh}": (lambda rng, sh=sh: random_case(
+        rng, B=4, N=32, sample_bits=12, coeff_bits=6, fixed_shift=sh))
+       for sh in (0, 1, 12, 13, 24, 25, 31)},
+    "fixed_predictors": _fixed_predictors,
+    "order_zero": _order_zero,
+    "known_first_order": _known_first_order,
+    "negative_floor": _negative_floor,
+}
+
+
+def _pallas_interpret(data, coeffs, shift, order):
+    """The TPU kernel itself, run in interpret mode as tests/test_lpc.py
+    runs it."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    from ohpipeline_tpu.ops import lpc as jlpc
+
+    B, N = data.shape
+    out = pl.pallas_call(
+        jlpc._lpc_kernel,
+        out_shape=jax.ShapeDtypeStruct((N, B), jnp.int32),
+        grid=(1, 1),
+        in_specs=[
+            pl.BlockSpec((N, B), lambda i, j: (j, i)),
+            pl.BlockSpec((jlpc.MAX_ORDER, B), lambda i, j: (0, i)),
+            pl.BlockSpec((1, B), lambda i, j: (0, i)),
+            pl.BlockSpec((1, B), lambda i, j: (0, i)),
+        ],
+        out_specs=pl.BlockSpec((N, B), lambda i, j: (j, i)),
+        scratch_shapes=[pltpu.VMEM((jlpc.MAX_ORDER, B), jnp.int32)] * 3,
+        interpret=True,
+    )(jnp.asarray(data.T), jnp.asarray(coeffs.T),
+      jnp.asarray(shift.reshape(1, B)), jnp.asarray(order.reshape(1, B)))
+    return np.asarray(out).T
+
+
+def _port(data, coeffs, shift, order, device="cpu"):
+    t = [torch.from_numpy(a).to(device) for a in (data, coeffs, shift, order)]
+    return lpc.lpc_synthesize(*t).cpu().numpy()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_matches_jax_package(case):
+    import jax.numpy as jnp
+    from ohpipeline_tpu.ops import lpc as jlpc
+
+    data, coeffs, shift, order = CASES[case](np.random.default_rng(
+        sorted(CASES).index(case)))
+    truth = jlpc.lpc_synthesize_py(data, coeffs, shift, order)
+    assert np.abs(truth).max() < (1 << 31), "case overflows int32"
+    got = _port(data, coeffs, shift, order)
+    assert got.dtype == np.int32 and got.shape == data.shape
+    np.testing.assert_array_equal(got.astype(np.int64), truth)
+    scan = np.asarray(jlpc.lpc_synthesize_scan(
+        jnp.asarray(data), jnp.asarray(coeffs), jnp.asarray(shift),
+        jnp.asarray(order)))
+    np.testing.assert_array_equal(got, scan)
+    np.testing.assert_array_equal(
+        got, _pallas_interpret(data, coeffs, shift, order))
+
+
+def test_known_first_order_is_cumulative_sum():
+    got = _port(*_known_first_order(None))
+    np.testing.assert_array_equal(got[0], [5, 6, 8, 11, 15])
+
+
+def test_cpu_tensors_take_plain_version():
+    _kernels.reset_launches()
+    data, coeffs, shift, order = random_case(np.random.default_rng(5), 4, 16)
+    _port(data, coeffs, shift, order)
+    assert _kernels.launches["lpc"] == 0
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_card(cuda):
+    # one serving group's shape, 25-bit samples, orders 0-32, shifts 13-31
+    case = random_case(np.random.default_rng(0), B=1152, N=4096,
+                       sample_bits=25, max_shift=31)
+    t = [torch.from_numpy(a).to(cuda) for a in case]
+    _kernels.reset_launches()
+    got = lpc.lpc_synthesize(*t)
+    torch.cuda.synchronize()
+    assert _kernels.launches["lpc"] == 1
+    want = lpc.lpc_synthesize_torch(*t)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_plain_on_card_small(case, cuda):
+    # the plain version on the CPU is held to the bigint oracle above
+    args = CASES[case](np.random.default_rng(sorted(CASES).index(case)))
+    np.testing.assert_array_equal(_port(*args, cuda), _port(*args))
