@@ -19,11 +19,28 @@ Phases, each ending in torch.cuda.synchronize():
   4. the serving path decode_flac_streams_device(device="cuda") over all 18
      streams, bit-exact against the encoder input, with both kernels'
      launch counts taken from that run alone;
-  5. the flagship step entry("cuda") against entry("cpu"), bit-exact.
+  5. the flagship step entry("cuda") against entry("cpu"), bit-exact; and
+     ops.pcm to_float, attenuate and bit_depth_convert on the card against
+     the CPU, bit for bit, over rows of bit depths 8, 16, 24 and 32;
+  6. TNS kernel against its plain version on the card (max |err| <= 1e-5 of
+     each row's peak), on the first AAC serving group's TnsPool planes and
+     on a worst case (1024 rows, every one of the 24 filter slots in use,
+     order 12, both directions); both timed with CUDA events;
+  7. the AAC-LC serving path decode_aac_streams_device(device="cuda") at
+     the width of bench.py's headline: 48 streams cut from
+     tests/assets/dryrun.aac (stream s: the asset from frame s onward, then
+     the whole asset 3 more times, ~8 s each), 64 frames per group (6144
+     rows of 1024 coefficients per device pass).  Group 0 is held to the
+     float64 reference (rms <= 0.25, max <= 1 LSB), the first 8 streams to
+     the same call on the CPU (<= 1 LSB), and the TNS kernel's launch count
+     is taken from a warm call alone.
 
-Any failure raises and exits non-zero; so does a machine without a CUDA
-device, before anything is built.  The last two lines printed are the
-kernels' JSON record and {"ok": true, "device": {...}}.  Imports no JAX.
+Float32 matrix products must run in full float32 (no TF32), which is
+PyTorch's default; the script checks that the default holds before and
+after the port runs.  Any failure raises and exits non-zero; so does a
+machine without a CUDA device, before anything is built.  The last two
+lines printed are the kernels' JSON record and {"ok": true, "device":
+{...}}, after the card's name and power limit.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +61,11 @@ CD_SECONDS = 8.0
 HIRES_SEEDS = (101, 102)              # 2 streams at 24-bit / 96 kHz
 HIRES_SECONDS = 3.7                   # as many 4096-sample frames as 8 s CD
 FRAMES_PER_GROUP = 32
+AAC_ASSET = os.path.join(HERE, "tests", "assets", "dryrun.aac")
+AAC_STREAMS = 48                      # bench.py's headline AAC width
+AAC_REPEATS = 3                       # whole-asset copies after the cut
+AAC_FRAMES_PER_GROUP = 64             # the reference serving default
+AAC_CPU_STREAMS = 8                   # streams held to the CPU decode
 
 
 def fail(msg: str) -> None:
@@ -122,6 +144,89 @@ def lpc_case(seed=0, B=1152, N=4096):
     return data, coeffs, shift, order
 
 
+def aac_streams() -> list:
+    """Stream s: dryrun.aac's ADTS frames from frame s (mod the asset's
+    frame count) onward, then the whole asset AAC_REPEATS more times."""
+    from ohpipeline_tpu_torch._host import aac_bitstream
+
+    with open(AAC_ASSET, "rb") as f:
+        data = f.read()
+    offsets, pos = [], 0
+    while pos < len(data):
+        h = aac_bitstream.parse_adts_header(data, pos)
+        if h is None:
+            break
+        offsets.append(pos)
+        pos += h.frame_bytes
+    return [data[offsets[s % len(offsets)]:] + data * AAC_REPEATS
+            for s in range(AAC_STREAMS)]
+
+
+def tns_worst_case(P=1024, seed=0):
+    """P short-window rows with all 24 filter slots in use (3 regions per
+    window), order 12, directions alternating between neighbours, stable
+    coefficients from 4-bit reflection coefficients shrinking with the tap
+    (as an encoder's do); spec is (P, 1024) with row j filtered by pooled
+    row j."""
+    from ohpipeline_tpu_torch.codecs.aac.synthesis import _lattice_to_lpc
+
+    rng = np.random.default_rng(seed)
+    tfi = np.zeros((P, 1024), np.uint8)
+    tco = np.zeros((P, 24, 12), np.float32)
+    tdir = np.zeros((P, 24), np.uint8)
+    lim = np.minimum(7, 8 >> np.minimum(np.arange(12), 2))
+    for j in range(P):
+        for w in range(8):
+            edges = [0, *sorted(rng.choice(np.arange(8, 120), 2,
+                                           replace=False)), 128]
+            for fi in range(3):
+                slot = w * 3 + fi
+                qc = rng.integers(-lim, lim + 1)
+                refl = np.where(qc >= 0, np.sin(qc / (7.5 / (np.pi / 2))),
+                                np.sin(qc / (8.5 / (np.pi / 2))))
+                tco[j, slot] = _lattice_to_lpc(refl)
+                tdir[j, slot] = (j + w + fi) % 2
+                tfi[j, w * 128 + edges[fi]:w * 128 + edges[fi + 1]] = slot + 1
+    spec = (rng.standard_normal((P, 1024)) * 3000).astype(np.float32)
+    return spec, tfi, tco, tdir, np.arange(P, dtype=np.int32)
+
+
+def check_tns(name, arrays, dev):
+    """TNS kernel against the plain version on the card; returns (max
+    |err|, kernel ms, plain ms)."""
+    import torch
+    from ohpipeline_tpu_torch.codecs.aac import synthesis as asyn
+
+    spec, *pool = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in arrays]
+    got = asyn.apply_tns_zz(spec, *pool)
+    want = asyn.tns_scan_torch(spec.clone(), *pool)
+    torch.cuda.synchronize()
+    rows = pool[3][pool[3] >= 0].long()
+    err = (got[rows] - want[rows]).abs().amax(1)
+    peak = want[rows].abs().amax(1)
+    if not bool((err <= 1e-5 * peak).all()):
+        raise AssertionError(f"tns kernel != plain on {name}: worst "
+                             f"|err|/peak {float((err / peak).max()):.3g}")
+    work = spec.clone()
+    ms = cuda_ms(lambda: asyn.tns_scan(work, *pool), 20)
+    plain_ms = cuda_ms(lambda: asyn.tns_scan_torch(work, *pool), 2)
+    print(f"phase 6: tns {name}: {rows.numel()} rows of {spec.shape[0]} "
+          f"within 1e-5 of each row's peak (max |err| "
+          f"{float(err.max()):.4g}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms")
+    return float(err.max()), ms, plain_ms
+
+
+def check_precision() -> None:
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 matmuls are not in full float32 "
+                             "(TF32 on)")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "ohpipeline_tpu_torch")):
         fail("the ohpipeline_tpu_torch package is missing; run from the "
@@ -169,6 +274,7 @@ def main() -> None:
           f"{triton_note}; nvcc {_kernels.find_nvcc()}; "
           f"g++ {shutil.which('g++')}")
     dev = torch.device("cuda")
+    check_precision()
     t0 = time.perf_counter()
     _kernels.library()
     torch.cuda.synchronize()
@@ -234,7 +340,7 @@ def main() -> None:
     first = serve()
     _kernels.reset_launches()
     wall = serve()
-    counts = dict(_kernels.launches)
+    counts = {k: _kernels.launches[k] for k in ("lpc", "rice")}
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel did not run on the path: {counts}")
     print(f"phase 4: {len(streams)} streams bit-exact; launches {counts}; "
@@ -252,6 +358,94 @@ def main() -> None:
             and torch.equal(peaks.cpu(), want_p)):
         raise AssertionError("entry('cuda') != entry('cpu')")
     print(f"phase 5: entry step {tuple(rendered.shape)} card == cpu")
+    from ohpipeline_tpu_torch.ops import pcm
+
+    rng = np.random.default_rng(5)
+    bits = np.tile(np.array([8, 16, 24, 32], np.int32), 4)
+    tile = (rng.integers(-(1 << 31), 1 << 31, (16, 2, 4096))
+            >> (32 - bits)[:, None, None]).astype(np.int32)
+    att = rng.integers(0, pcm.UNITY_ATTENUATION + 1, 16).astype(np.int32)
+    for name, args in (("to_float", (tile, bits)),
+                       ("attenuate", (tile, att)),
+                       ("bit_depth_convert", (tile, bits,
+                                              np.roll(bits, 1)))):
+        fn = getattr(pcm, name)
+        want = fn(*(torch.from_numpy(a) for a in args))
+        got = fn(*(torch.from_numpy(a).to(dev) for a in args))
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        if not torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)):
+            raise AssertionError(f"pcm.{name} on the card != CPU")
+    print("phase 5: pcm to_float, attenuate, bit_depth_convert over bit "
+          "depths 8/16/24/32: card == cpu bit for bit")
+
+    # --- phase 6: TNS kernel vs plain ------------------------------------
+    from ohpipeline_tpu_torch.codecs.aac import synthesis as asyn
+    from ohpipeline_tpu_torch.codecs.aac.serving import (
+        decode_aac_streams_device, decode_planes, iter_groups)
+    from ohpipeline_tpu_torch.codecs.aac.serving import to_device as \
+        aac_to_device
+
+    t0 = time.perf_counter()
+    astreams = aac_streams()
+    planes0, _ = next(iter_groups(astreams, AAC_FRAMES_PER_GROUP))
+    print(f"phase 6: {len(astreams)} AAC streams, first group parsed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    TB = planes0["q4"].shape[0] * planes0["q4"].shape[1]
+    serving_spec = (np.random.default_rng(6).standard_normal((TB, 1024))
+                    * 3000).astype(np.float32)
+    tns_err, tns_ms, tns_plain_ms = check_tns(
+        "serving group 0", (serving_spec, planes0["tfi"], planes0["tco"],
+                            planes0["tdir"], planes0["trow"]), dev)
+    worst = check_tns("worst case", tns_worst_case(), dev)
+    tns_err = max(tns_err, worst[0])
+
+    # --- phase 7: AAC-LC serving at the headline width --------------------
+    def serve_aac():
+        t0 = time.perf_counter()
+        outs = decode_aac_streams_device(astreams, AAC_FRAMES_PER_GROUP,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t0
+
+    _outs, aac_first = serve_aac()
+    _kernels.reset_launches()
+    aac_outs, aac_wall = serve_aac()
+    tns_launches = _kernels.launches["tns"]
+    if tns_launches <= 0:
+        raise AssertionError("the TNS kernel did not run on the AAC path")
+    aac_audio_s = sum(o.shape[1] for o in aac_outs) / 44100.0
+    SC = 2 * len(astreams)
+    consts = asyn.device_constants(planes0["rate_index"], device=dev)
+    pcm0, _ = decode_planes(aac_to_device(planes0, dev),
+                            torch.zeros((SC, 1024), device=dev), consts)
+    ref0, _ = asyn.decode_chunk_zz_reference(
+        *(planes0[k] for k in ("q4", "sfb", "ssf", "ssr", "msb", "opx",
+                               "epak")), None,
+        *(planes0[k] for k in ("eva2", "side", "srow")),
+        np.zeros((SC, 1024), np.float32), consts[-1].cpu().numpy(),
+        *(planes0[k] for k in ("tfi", "tco", "tdir", "trow")))
+    d = pcm0.cpu().numpy() - ref0
+    rms, mx = float(np.sqrt((d ** 2).mean())), float(np.abs(d).max())
+    if not (rms <= 0.25 and mx <= 1.0):
+        raise AssertionError(f"AAC group 0 vs float64: rms {rms}, max {mx}")
+    cpu_outs = decode_aac_streams_device(astreams[:AAC_CPU_STREAMS],
+                                         AAC_FRAMES_PER_GROUP, device="cpu")
+    lsb = 0
+    for s, (o, c) in enumerate(zip(aac_outs, cpu_outs)):
+        if o.shape != c.shape:
+            raise AssertionError(f"AAC stream {s}: {o.shape} != {c.shape}")
+        lsb = max(lsb, int(np.abs(o.astype(np.int64) - c).max()))
+    if lsb > 1:
+        raise AssertionError(f"AAC card vs CPU: {lsb} LSB")
+    print(f"phase 7: {len(astreams)} AAC streams, {aac_audio_s:.1f} s of "
+          f"audio; group 0 vs float64 rms {rms:.4f} max {mx:.4f} LSB; "
+          f"first {AAC_CPU_STREAMS} streams card vs cpu <= {lsb} LSB; tns "
+          f"launches {tns_launches}; wall {aac_wall:.3f} s (first call "
+          f"{aac_first:.3f} s); {aac_audio_s / aac_wall:.1f} decoded audio "
+          f"s per wall s")
+    check_precision()
 
     kernels = [
         {"name": "lpc", "route": "cuda",
@@ -264,6 +458,11 @@ def main() -> None:
          "replaces": "ohpipeline_tpu/codecs/flac/rice_jax.py:41",
          "launches": counts["rice"], "max_abs_err": rice_err,
          "ms": rice_ms, "plain_ms": rice_plain_ms},
+        {"name": "tns", "route": "cuda",
+         "source": "ohpipeline_tpu_torch/csrc/tns.cu",
+         "replaces": "ohpipeline_tpu/codecs/aac/synthesis.py:287",
+         "launches": tns_launches, "max_abs_err": tns_err,
+         "ms": tns_ms, "plain_ms": tns_plain_ms},
     ]
     print(card_line)
     print(json.dumps({"kernels": kernels}))

@@ -2,14 +2,17 @@
 with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A second package beside the JAX one, which stays the reference.  It holds
-the FLAC serving path and the flagship decode->render step:
+the FLAC and AAC-LC serving paths and the flagship decode->render step:
 
 _host      the jax-free host helpers it shares with ohpipeline_tpu (native
-           parsers, FLAC metadata parser and encoder)
+           parsers, FLAC metadata parser and encoder, AAC tables and ADTS
+           bitstream reader)
 _kernels   nvcc build, ctypes binding and launch counters of csrc/*.cu
 ops        LPC synthesis (kernel + plain version) and PCM DSP
 codecs     FLAC rice decode (kernel + plain version), group synthesis and
-           the multi-stream serving API
+           the multi-stream serving API; AAC-LC synthesis (TNS kernel +
+           plain version, IMDCT, host spectral prep), group hooks and the
+           multi-stream serving API
 parallel   the single-device decode->render step
 entry      entry(device) -> (fn, args) for that step
 

@@ -1,8 +1,11 @@
 """Build, bind and launch the port's hand-written CUDA kernels.
 
-At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and the objects are linked into
 one shared library under ``_build/`` (named by a hash of the sources, so an
-edited source rebuilds), which is loaded with ``ctypes``.  Each kernel has a
+edited source rebuilds; written to a temporary name and renamed into
+place, so a concurrent process never loads a half-written file), which is
+loaded with ``ctypes``.  Each kernel has a
 plain C entry point that launches on the caller's stream and returns
 ``cudaGetLastError()``; the wrappers here check their tensors, launch on
 ``torch.cuda.current_stream()``, raise on a non-zero return and count the
@@ -25,11 +28,13 @@ import torch
 _DIR = pathlib.Path(__file__).resolve().parent
 _SRC = _DIR / "csrc"
 _BUILD = _DIR / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+#: nvcc flags of each source's compile step (the link adds ``-shared``).
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
-launches = {"lpc": 0, "rice": 0}
+launches = {"lpc": 0, "rice": 0, "tns": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -62,21 +67,40 @@ def _build() -> ctypes.CDLL:
             raise RuntimeError("nvcc not found (set CUDA_HOME or PATH); the "
                                "port's CUDA kernels cannot be built")
         _BUILD.mkdir(parents=True, exist_ok=True)
+        tag = f"{digest.hexdigest()[:12]}.{os.getpid()}"
+        objs = [_BUILD / f"{src.stem}-{tag}.o" for src in sources]
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                               *map(str, sources)],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{build_log}")
-        os.replace(tmp, so)
+        try:
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o",
+                                       str(obj), str(src)],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for src, obj in zip(sources, objs)]
+            build_log = "".join(p.communicate()[0] for p in procs)
+            failed = [src.name for src, p in zip(sources, procs)
+                      if p.returncode != 0]
+            if not failed:
+                link = subprocess.run([nvcc, *_ARCH, "-shared", "-o",
+                                       str(tmp), *map(str, objs)],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                build_log += link.stdout
+                failed = ["link"] if link.returncode != 0 else []
+            if failed:
+                raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                                   f"{build_log}")
+            os.replace(tmp, so)
+        finally:
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(so))
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.ohp_lpc_synthesize.argtypes = [p, p, p, p, p, i32, i32, p]
     lib.ohp_lpc_synthesize.restype = i32
     lib.ohp_rice_decode_units.argtypes = [p, i64, p, p, p, p, p, i64, p]
     lib.ohp_rice_decode_units.restype = i32
+    lib.ohp_tns_apply.argtypes = [p, i64, p, p, p, p, i64, p]
+    lib.ohp_tns_apply.restype = i32
     return lib
 
 
@@ -89,11 +113,13 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.device != device or t.dtype != torch.int32 \
+def _check(name: str, t: torch.Tensor, shape: tuple, device,
+           dtype=torch.int32) -> None:
+    if t.device != device or t.dtype != dtype \
             or not t.is_contiguous() or tuple(t.shape) != shape:
-        raise ValueError(f"{name}: want contiguous int32 {shape} on {device},"
-                         f" got {t.dtype} {tuple(t.shape)} on {t.device}")
+        raise ValueError(f"{name}: want contiguous {dtype} {shape} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -155,3 +181,32 @@ def rice(words: torch.Tensor, cur: torch.Tensor, kk: torch.Tensor,
     _raise_on(rc, "rice")
     launches["rice"] += 1
     return out
+
+
+def tns(spec: torch.Tensor, tfi: torch.Tensor, tco: torch.Tensor,
+        tdir: torch.Tensor, trow: torch.Tensor) -> None:
+    """``csrc/tns.cu``: TNS-filter the rows ``trow`` (P,) int32 of ``spec``
+    (TB, 1024) float32 in place on the card, from the TnsPool planes tfi
+    (P, 1024) uint8, tco (P, 24, 12) float32 and tdir (P, 24) uint8.  Rows
+    outside [0, TB) are padding.  The kernel reads rows, slot bytes and
+    coefficients 16 bytes at a time, so every base pointer must be 16-byte
+    aligned."""
+    dev = spec.device
+    if dev.type != "cuda":
+        raise ValueError(f"tns kernel needs a CUDA tensor, got {dev}")
+    TB, P = spec.shape[0], trow.shape[0]
+    _check("spec", spec, (TB, 1024), dev, torch.float32)
+    _check("tfi", tfi, (P, 1024), dev, torch.uint8)
+    _check("tco", tco, (P, 24, 12), dev, torch.float32)
+    _check("tdir", tdir, (P, 24), dev, torch.uint8)
+    _check("trow", trow, (P,), dev)
+    for name, t in (("spec", spec), ("tfi", tfi), ("tco", tco)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"tns kernel: {name} is not 16-byte aligned")
+    lib = library()
+    with torch.cuda.device(dev):
+        rc = lib.ohp_tns_apply(spec.data_ptr(), TB, tfi.data_ptr(),
+                               tco.data_ptr(), tdir.data_ptr(),
+                               trow.data_ptr(), P, _stream(dev))
+    _raise_on(rc, "tns")
+    launches["tns"] += 1

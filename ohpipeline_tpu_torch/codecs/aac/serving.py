@@ -1,0 +1,207 @@
+"""Multi-stream batched AAC-LC decode over the zigzag-nibble wire: the
+serving API.
+
+Port of ``decode_aac_streams_device`` of
+``ohpipeline_tpu.codecs.aac.serving``.  ADTS streams sharing a sample rate
+and channel count decode in groups of ``frames_per_group`` frames.  A survey
+parse sizes the shared planes once (escape list, side plane, short-window
+and TNS pools), as the reference does, so the wire planes match it plane by
+plane.  Per group the native unpacker (``native.aac_prepare_rows_zz``) lays
+every stream's quantized coefficients at their spectral positions as zigzag
+nibbles, with per-band scalefactor bytes, M/S bitmasks, pooled short-window
+scalefactors, escape triples for |q| > 7 and the TnsPool planes of TNS
+rows; the remaining exception rows (PNS, intensity) are prepared on the
+host into a float32 side plane.  One device pass
+(``synthesis.decode_chunk_zz``) then synthesises every stream's frames,
+with the overlap carried across groups on the device.
+
+The host parses group g + 1 while the device runs group g; its PCM is
+rounded on the device and copied back after the next group is queued.  No
+drain thread is involved, so an error propagates from the loop with
+nothing left running.  ``mesh=`` is not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..._host import aac_bitstream, aac_native
+from . import synthesis as SYN
+
+#: Argument order of ``synthesis.decode_chunk_zz`` before ``esc_pos``
+#: (passed as None: ``epak`` packs row*1024+pos) and after it, up to the
+#: overlap; the TnsPool planes follow the constants.
+ZZ_PLANES = ("q4", "sfb", "ssf", "ssr", "msb", "opx", "epak")
+ZZ_PLANES_AFTER_ESC = ("eva2", "side", "srow")
+TNS_PLANES = ("tfi", "tco", "tdir", "trow")
+
+
+def _header(streams: list) -> tuple[int, int]:
+    hdrs = [aac_bitstream.parse_adts_header(s) for s in streams]
+    if any(h is None for h in hdrs):
+        raise ValueError("not an ADTS stream")
+    nch, ri = hdrs[0].channels, hdrs[0].rate_index
+    for h in hdrs[1:]:
+        if (h.channels, h.rate_index) != (nch, ri):
+            raise ValueError("device batch needs uniform rate/channels")
+    return nch, ri
+
+
+def _survey(streams: list, nch: int, G: int) -> tuple[int, int, int, int]:
+    """Per-group capacities (escapes, side rows, short rows, TNS rows)
+    that fit every group of the call, sized as the reference sizes them."""
+    native = aac_native()
+    esc_cap = side_cap = ssf_cap = tns_cap = 0
+    S = len(streams)
+    pos = [0] * S
+    live = [True] * S
+    pbuf = None                  # reused parse arrays (~1 MB/call)
+    while any(live):
+        eb = sb = hb = tb = 0
+        for s in range(S):
+            if not live[s]:
+                continue
+            n, pos[s], pbuf = native.aac_parse_group(
+                streams[s], pos[s], channels=nch, max_frames=G, out=pbuf)
+            live[s] = n == G
+            if n == 0:
+                continue
+            R = n * nch
+            eb += int((np.abs(pbuf["quant"][:R]) > 7).sum())
+            exotic = (pbuf["cb"][:R] >= 13).any(axis=1)
+            has_tns = pbuf["tnsn"][:R].any(axis=1)
+            sb += int(exotic.sum())
+            tb += int((has_tns & ~exotic).sum())
+            hb += int((pbuf["ics"][:R, 0] == 2).sum())
+        esc_cap = max(esc_cap, eb)
+        side_cap = max(side_cap, sb)
+        ssf_cap = max(ssf_cap, hb)
+        tns_cap = max(tns_cap, tb)
+    return (max(256, 1 << int(np.ceil(np.log2(esc_cap + 64)))),
+            int(max(8, side_cap + 8)), int(max(64, ssf_cap + 8)),
+            int(max(64, tns_cap + 8)))
+
+
+def _side_rows(b: dict, special, nch: int, SC: int, col0: int, side, srow,
+               n_side: int) -> int:
+    """Host-prepare one stream's special rows into the side plane from
+    slot ``n_side`` on; returns the next free slot."""
+    frames = np.unique(np.asarray(special) // nch)
+    idx = np.asarray([f * nch + cc for f in frames for cc in range(nch)])
+    sub = {key: (val[idx] if key not in ("msmask", "rate_index")
+                 else (val[frames] if key == "msmask" else val))
+           for key, val in b.items()}
+    sp, _ = SYN.prepare_group(sub, len(frames), nch,
+                              np.zeros(nch, np.int32))
+    fmap = {int(f): j for j, f in enumerate(frames)}
+    for r in special:
+        f, cc = divmod(int(r), nch)
+        side[n_side] = sp[fmap[f], cc]
+        srow[n_side] = f * SC + col0 + cc
+        n_side += 1
+    return n_side
+
+
+def iter_groups(streams: list, frames_per_group: int = 64):
+    """Parse ``streams`` group by group.  Yields ``(planes, counts)``: the
+    numpy wire planes of one device pass, keyed by ``ZZ_PLANES``,
+    ``ZZ_PLANES_AFTER_ESC`` and ``TNS_PLANES`` (plus ``rate_index``), and
+    ``(stream, nframes)`` for every stream still live in the group.
+    Columns of stream s are s * channels ... (s + 1) * channels - 1."""
+    native = aac_native()
+    nch, ri = _header(streams)
+    S, G = len(streams), frames_per_group
+    SC = S * nch
+    ACAP, MAXS, SSCAP, TNSCAP = _survey(streams, nch, G)
+    pos = [0] * S
+    live = [True] * S
+    pshape = [np.zeros(nch, np.int32) for _ in range(S)]
+    pbuf = None
+    while any(live):
+        q4 = np.zeros((G, SC, 512), np.uint8)
+        sfb = np.zeros((G, SC, 64), np.uint8)
+        msb = np.zeros((G, SC // 2, 128), np.uint8)
+        opx = np.zeros((G, SC), np.uint8)
+        epak = np.full(ACAP, -1, np.int32)
+        eva2 = np.zeros(ACAP, np.int16)
+        side = np.zeros((MAXS, 1024), np.float32)
+        srow = np.full(MAXS, -1, np.int32)
+        esc = native.EscapeList(ACAP)
+        ssfv = native.ShortSfPool(SSCAP)
+        tnsv = native.TnsPool(TNSCAP)
+        n_side = 0
+        counts = []
+        for s in range(S):
+            if not live[s]:
+                continue
+            n, pos[s], pbuf = native.aac_parse_group(
+                streams[s], pos[s], channels=nch, max_frames=G, out=pbuf)
+            live[s] = n == G
+            counts.append((s, n))
+            if n == 0:
+                continue
+            special = native.aac_prepare_rows_zz(
+                pbuf, n, G, nch, pshape[s], esc, ssfv,
+                q4=q4, sfb=sfb, msb=msb, opx=opx, col0=s * nch,
+                max_special=G * nch, tns=tnsv)
+            if special is None:
+                raise ValueError("zz capacity exceeded (survey bug)")
+            if len(special):
+                n_side = _side_rows(pbuf, special, nch, SC, s * nch, side,
+                                    srow, n_side)
+        ne = esc.count.value
+        epak[:ne] = esc.row[:ne] * 1024 + esc.pos[:ne]
+        eva2[:ne] = esc.val[:ne]
+        yield dict(q4=q4, sfb=sfb, ssf=ssfv.sf, ssr=ssfv.row, msb=msb,
+                   opx=opx, epak=epak, eva2=eva2, side=side, srow=srow,
+                   tfi=tnsv.tfi, tco=tnsv.tco, tdir=tnsv.tdir,
+                   trow=tnsv.row, rate_index=ri), counts
+
+
+def to_device(planes: dict, device) -> dict:
+    """Numpy wire planes -> tensors on ``device``, dtypes unchanged
+    (``rate_index`` stays a host int)."""
+    return {k: (torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                if isinstance(v, np.ndarray) else v)
+            for k, v in planes.items()}
+
+
+def decode_planes(t: dict, overlap, consts):
+    """One device pass over a group's planes on the device (``to_device``):
+    returns ``decode_chunk_zz``'s (pcm (G, S*C, 1024) float32, overlap)."""
+    return SYN.decode_chunk_zz(
+        *(t[k] for k in ZZ_PLANES), None,
+        *(t[k] for k in ZZ_PLANES_AFTER_ESC), overlap, *consts,
+        *(t[k] for k in TNS_PLANES))
+
+
+def decode_aac_streams_device(streams: list, frames_per_group: int = 64, *,
+                              device) -> list[np.ndarray]:
+    """streams: ADTS AAC-LC files (bytes) sharing rate and channel count.
+    Returns [(channels, nsamples) int32 PCM] per stream, rounded half to
+    even and clipped to the int16 range like the host decode path."""
+    nch, ri = _header(streams)
+    consts = SYN.device_constants(ri, device=device)
+    ov = torch.zeros((len(streams) * nch, 1024), dtype=torch.float32,
+                     device=device)
+    outs: list[list[np.ndarray]] = [[] for _ in streams]
+
+    def collect(pcm16, counts):                 # (G, S*C, 1024) int32
+        pcm16 = pcm16.cpu().numpy()
+        for s, n in counts:
+            if n:
+                cols = pcm16[:n, s * nch:(s + 1) * nch]
+                outs[s].append(cols.transpose(1, 0, 2).reshape(nch, -1))
+
+    pending = None
+    for planes, counts in iter_groups(streams, frames_per_group):
+        pcm, ov = decode_planes(to_device(planes, device), ov, consts)
+        pcm16 = torch.round(pcm).clamp_(-32768, 32767).to(torch.int32)
+        if pending is not None:
+            collect(*pending)
+        pending = (pcm16, counts)
+    if pending is not None:
+        collect(*pending)
+    return [np.concatenate(o, axis=1) if o else np.zeros((nch, 0), np.int32)
+            for o in outs]

@@ -1,5 +1,7 @@
-"""The port runs where JAX is absent, and its chip smoke test refuses to
-run, and builds nothing, where there is no CUDA device."""
+"""The port runs where JAX is absent (it decodes FLAC and AAC-LC and runs
+the flagship step with every import of jax failing, and imports no module
+of ohpipeline_tpu.codecs, .ops or .parallel), and its chip smoke test
+refuses to run, and builds nothing, where there is no CUDA device."""
 
 import os
 import pathlib
@@ -17,6 +19,8 @@ _BLOCKED_JAX = textwrap.dedent("""
     sys.modules["jax"] = None          # any import of jax now fails
     import numpy as np
     from ohpipeline_tpu_torch import _host
+    from ohpipeline_tpu_torch.codecs.aac.serving import (
+        decode_aac_streams_device)
     from ohpipeline_tpu_torch.codecs.flac.serving import (
         decode_flac_streams_device)
     from ohpipeline_tpu_torch.entry import entry
@@ -31,6 +35,9 @@ _BLOCKED_JAX = textwrap.dedent("""
     assert (out == x).all()
     fn, args = entry("cpu")
     fn(*args)
+    aac = open("tests/assets/dryrun.aac", "rb").read()
+    pcm, = decode_aac_streams_device([aac], 64, device="cpu")
+    assert pcm.shape == (2, 89 * 1024) and pcm.any()
     assert not any(m == "ohpipeline_tpu.codecs" or m.startswith(
         ("ohpipeline_tpu.codecs.", "ohpipeline_tpu.ops",
          "ohpipeline_tpu.parallel")) for m in sys.modules)

@@ -2,7 +2,8 @@
 ohpipeline_tpu.ops.pcm on the same seeded inputs, bit-exact: the integer
 ops are exact, and apply_gain / to_float run their float32 operations in
 the JAX package's order.  Unity rows pass through unchanged.  The ``gpu``
-test holds the card's apply_gain to the CPU's."""
+tests hold the card's apply_gain, to_float, attenuate and
+bit_depth_convert to the CPU's, bit for bit."""
 
 from fractions import Fraction
 
@@ -144,3 +145,24 @@ def test_card_matches_cpu(cuda):
     args = [torch.from_numpy(a) for a in (tile, *gains)]
     assert torch.equal(pcm.apply_gain(*[a.to(cuda) for a in args]).cpu(),
                        pcm.apply_gain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["to_float", "attenuate",
+                                  "bit_depth_convert"])
+def test_card_matches_cpu_bit_for_bit(name, cuda):
+    """Rows of bit depths 8, 16, 24 and 32; to_float's scale goes through
+    exp on the card, which must round as the CPU's does."""
+    rng = np.random.default_rng(21)
+    bits = np.tile(np.array([8, 16, 24, 32], np.int32), 4)
+    tile = (rng.integers(-(1 << 31), 1 << 31, (16, 2, 4096))
+            >> (32 - bits)[:, None, None]).astype(np.int32)
+    args = {"to_float": (tile, bits),
+            "attenuate": (tile, rng.integers(0, pcm.UNITY_ATTENUATION + 1,
+                                             16).astype(np.int32)),
+            "bit_depth_convert": (tile, bits, np.roll(bits, 1))}[name]
+    fn = getattr(pcm, name)
+    want = fn(*(torch.from_numpy(a) for a in args))
+    got = fn(*(torch.from_numpy(a).to(cuda) for a in args))
+    assert got.device.type == "cuda" and got.dtype == want.dtype
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
