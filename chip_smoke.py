@@ -33,7 +33,22 @@ Phases, each ending in torch.cuda.synchronize():
      rows of 1024 coefficients per device pass).  Group 0 is held to the
      float64 reference (rms <= 0.25, max <= 1 LSB), the first 8 streams to
      the same call on the CPU (<= 1 LSB), and the TNS kernel's launch count
-     is taken from a warm call alone.
+     is taken from a warm call alone;
+  8. SBR envelope kernel against its plain version on the card (max |err|
+     <= 1e-5 of each channel's peak), on the scan inputs of the first HE-AAC
+     serving group (captured from phase 9's first call) and on a worst case
+     (every slot active, smoothing against in-frame envelopes and the
+     carry, carried slots, sine and noise on) at 24 and at 40 bins (two
+     bin tiles); all timed with CUDA events;
+  9. the HE-AAC v1 serving path decode_he_streams_device(device="cuda") at
+     the width of the JAX package's HE serving cell (16 streams, 48 frames
+     per group): stream s is tests/assets/dryrun_he.aac from frame
+     10 * (s mod 5) onward (an SBR header comes every 10 frames), then the
+     whole asset 3 + s // 5 more times.  The first 4 streams are held to the
+     same call on the CPU (<= 2 LSB), stream 0's first group to sbr.py's
+     numpy SbrDecoder chain fed the same core PCM (max error < 2e-3 of the
+     peak, rms error < 5e-4 of the rms), and the sbr_env and TNS launch
+     counts are taken from a warm call alone.
 
 Float32 matrix products must run in full float32 (no TF32), which is
 PyTorch's default; the script checks that the default holds before and
@@ -66,6 +81,11 @@ AAC_STREAMS = 48                      # bench.py's headline AAC width
 AAC_REPEATS = 3                       # whole-asset copies after the cut
 AAC_FRAMES_PER_GROUP = 64             # the reference serving default
 AAC_CPU_STREAMS = 8                   # streams held to the CPU decode
+HE_ASSET = os.path.join(HERE, "tests", "assets", "dryrun_he.aac")
+HE_STREAMS = 16                       # the JAX package's HE serving width
+HE_FRAMES_PER_GROUP = 48
+HE_HEADER_EVERY = 10                  # frames between the asset's SBR headers
+HE_CPU_STREAMS = 4
 
 
 def fail(msg: str) -> None:
@@ -160,6 +180,101 @@ def aac_streams() -> list:
         pos += h.frame_bytes
     return [data[offsets[s % len(offsets)]:] + data * AAC_REPEATS
             for s in range(AAC_STREAMS)]
+
+
+def he_streams() -> list:
+    """Stream s: dryrun_he.aac from frame 10 * (s mod 5) onward, then the
+    whole asset 3 + s // 5 more times."""
+    from ohpipeline_tpu_torch._host import aac_bitstream
+
+    with open(HE_ASSET, "rb") as f:
+        data = f.read()
+    offsets, pos = [], 0
+    while pos < len(data):
+        h = aac_bitstream.parse_adts_header(data, pos)
+        if h is None:
+            break
+        offsets.append(pos)
+        pos += h.frame_bytes
+    cuts = len(offsets) // HE_HEADER_EVERY + 1
+    return [data[offsets[HE_HEADER_EVERY * (s % cuts)]:]
+            + data * (3 + s // cuts) for s in range(HE_STREAMS)]
+
+
+def sbr_env_worst_case(dev, C=32, F=48, M=24, seed=8):
+    """Scan inputs with every slot active, prev_id drawn from the frame's
+    envelopes and the carry (8), carry_mask on the first 8 slots (the 6
+    carried and 2 zeroed), smoothing ratios in [0, 1), sine bins, sine and
+    noise levels all on; as envelope_scan takes them, on ``dev``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    def i8(lo, hi, *shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape)
+                                .astype(np.int8)).to(dev)
+
+    levels = [f32(C, F, 8, M).abs() for _ in range(3)]
+    bins = torch.from_numpy((rng.random((C, F, 8, M)) < 0.3)
+                            .astype(np.float32)).to(dev)
+    r = torch.from_numpy(rng.random((C, F, 38)).astype(np.float32)).to(dev)
+    cmask = torch.zeros((C, F, 38), dtype=torch.float32, device=dev)
+    cmask[:, :, :8] = 1.0
+    planes = [f32(C, F, 38, M, scale=300.0) for _ in range(6)]
+    return (*levels, bins, i8(0, 8, C, F, 38), i8(0, 9, C, F, 38),
+            i8(-1, 8, C, F), r, cmask, *planes, f32(C, 2, M).abs(),
+            f32(C, 6, M, scale=300.0), f32(C, 6, M, scale=300.0))
+
+
+def check_sbr_env(name, args):
+    """SBR envelope kernel against the plain version on the card; returns
+    (max |err|, kernel ms, plain ms)."""
+    import torch
+    from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
+
+    got = sbrd.envelope_scan(*args)
+    want = sbrd.envelope_scan_torch(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        e = (g - w).abs().reshape(g.shape[0], -1).amax(1)
+        peak = w.abs().reshape(w.shape[0], -1).amax(1)
+        if not bool((e <= 1e-5 * peak).all()):
+            raise AssertionError(f"sbr_env kernel != plain on {name}: worst "
+                                 f"|err|/peak "
+                                 f"{float((e / peak.clamp_min(1e-30)).max()):.3g}")
+        err = max(err, float(e.max()))
+    ms = cuda_ms(lambda: sbrd.envelope_scan(*args), 20)
+    plain_ms = cuda_ms(lambda: sbrd.envelope_scan_torch(*args), 2)
+    C, F, _, M = args[0].shape
+    print(f"phase 8: sbr_env {name}: C={C} F={F} M={M} within 1e-5 of each "
+          f"channel's peak (max |err| {err:.4g}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms")
+    return err, ms, plain_ms
+
+
+def numpy_sbr_chain(stream: bytes, core, nframes: int):
+    """sbr.py's SbrDecoder (float64, per frame) over ``stream``'s first
+    ``nframes`` frames, fed the core PCM ``core`` (2, nframes, 1024):
+    returns (2, nframes * 2048)."""
+    from ohpipeline_tpu_torch._host import aac_bitstream, aac_native, aac_sbr
+
+    n, _, b = aac_native().aac_parse_group_sbr(stream, 0, channels=2,
+                                               max_frames=nframes)
+    dec = aac_sbr.SbrDecoder(aac_bitstream.parse_adts_header(stream)
+                             .sample_rate)
+    outs = []
+    for f in range(n):
+        payload, nbits, crc = b["sbr"][f]
+        chans, coupling = dec.parse_payload(payload, nbits, stereo=True,
+                                            crc=crc)
+        outs.append(dec.process_frame(core[:, f].astype(np.float64), chans,
+                                      coupling))
+    return np.concatenate(outs, axis=1)
 
 
 def tns_worst_case(P=1024, seed=0):
@@ -447,6 +562,81 @@ def main() -> None:
           f"s per wall s")
     check_precision()
 
+    # --- phases 8-9: HE-AAC v1 serving, SBR envelope kernel ---------------
+    from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
+    from ohpipeline_tpu_torch.codecs.aac.serving import (
+        decode_he_streams_device)
+
+    hstreams = he_streams()
+
+    def serve_he(streams, device):
+        t0 = time.perf_counter()
+        outs = decode_he_streams_device(streams, HE_FRAMES_PER_GROUP,
+                                        device=device)
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t0
+
+    # the first call also captures group 0's scan inputs and its core PCM
+    # and SBR output, wrapping the module's functions for that call only
+    captured = {}
+    scan, group = sbrd.envelope_scan, sbrd.device_decode_group
+
+    def scan_rec(*args):
+        captured.setdefault("scan", args)
+        return scan(*args)
+
+    def group_rec(static, pcm, cond, state):
+        out, new_state = group(static, pcm, cond, state)
+        captured.setdefault("group", (pcm, out))
+        return out, new_state
+
+    sbrd.envelope_scan, sbrd.device_decode_group = scan_rec, group_rec
+    try:
+        _outs, he_first = serve_he(hstreams, "cuda")
+    finally:
+        sbrd.envelope_scan, sbrd.device_decode_group = scan, group
+    sbr_err, sbr_ms, sbr_plain_ms = check_sbr_env("serving group 0",
+                                                  captured["scan"])
+    for name, M in (("worst case", 24), ("worst case, 40 bins", 40)):
+        worst = check_sbr_env(name, sbr_env_worst_case(dev, M=M))
+        sbr_err = max(sbr_err, worst[0])
+
+    check_precision()
+    _kernels.reset_launches()
+    he_outs, he_wall = serve_he(hstreams, "cuda")
+    he_launches = {k: _kernels.launches[k] for k in ("sbr_env", "tns")}
+    if min(he_launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not run on the HE path: "
+                             f"{he_launches}")
+    from ohpipeline_tpu_torch._host import aac_bitstream
+
+    out_rate = 2 * aac_bitstream.parse_adts_header(hstreams[0]).sample_rate
+    he_audio_s = sum(o.shape[1] for o in he_outs) / out_rate
+    cpu_he = decode_he_streams_device(hstreams[:HE_CPU_STREAMS],
+                                      HE_FRAMES_PER_GROUP, device="cpu")
+    he_lsb = 0
+    for s, (o, c) in enumerate(zip(he_outs, cpu_he)):
+        if o.shape != c.shape:
+            raise AssertionError(f"HE stream {s}: {o.shape} != {c.shape}")
+        he_lsb = max(he_lsb, int(np.abs(o.astype(np.int64) - c).max()))
+    if he_lsb > 2:
+        raise AssertionError(f"HE card vs CPU: {he_lsb} LSB")
+    core, out = (t.cpu().numpy() for t in captured["group"])
+    ref = numpy_sbr_chain(hstreams[0], core[:2], core.shape[1])
+    d = out[:2, :ref.shape[1]].astype(np.float64) - ref
+    rel = float(np.abs(d).max() / max(np.abs(ref).max(), 1.0))
+    he_rms = float(np.sqrt((d ** 2).mean() / ((ref ** 2).mean() + 1e-9)))
+    if not (rel < 2e-3 and he_rms < 5e-4):
+        raise AssertionError(f"HE group 0 vs numpy SBR chain: rel {rel:.3g}, "
+                             f"rms {he_rms:.3g}")
+    print(f"phase 9: {len(hstreams)} HE-AAC streams, {he_audio_s:.1f} s of "
+          f"audio at {out_rate} Hz; stream 0 group 0 vs numpy SBR chain max "
+          f"{rel:.3g} rms {he_rms:.3g} (relative); first {HE_CPU_STREAMS} "
+          f"streams card vs cpu <= {he_lsb} LSB; launches {he_launches}; "
+          f"wall {he_wall:.3f} s (first call {he_first:.3f} s); "
+          f"{he_audio_s / he_wall:.1f} decoded audio s per wall s")
+    check_precision()
+
     kernels = [
         {"name": "lpc", "route": "cuda",
          "source": "ohpipeline_tpu_torch/csrc/lpc.cu",
@@ -463,6 +653,11 @@ def main() -> None:
          "replaces": "ohpipeline_tpu/codecs/aac/synthesis.py:287",
          "launches": tns_launches, "max_abs_err": tns_err,
          "ms": tns_ms, "plain_ms": tns_plain_ms},
+        {"name": "sbr_env", "route": "cuda",
+         "source": "ohpipeline_tpu_torch/csrc/sbr_env.cu",
+         "replaces": "ohpipeline_tpu/codecs/aac/sbr_jax.py:489",
+         "launches": he_launches["sbr_env"], "max_abs_err": sbr_err,
+         "ms": sbr_ms, "plain_ms": sbr_plain_ms},
     ]
     print(card_line)
     print(json.dumps({"kernels": kernels}))

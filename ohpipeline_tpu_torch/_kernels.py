@@ -34,7 +34,7 @@ NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
-launches = {"lpc": 0, "rice": 0, "tns": 0}
+launches = {"lpc": 0, "rice": 0, "tns": 0, "sbr_env": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -101,6 +101,8 @@ def _build() -> ctypes.CDLL:
     lib.ohp_rice_decode_units.restype = i32
     lib.ohp_tns_apply.argtypes = [p, i64, p, p, p, p, i64, p]
     lib.ohp_tns_apply.restype = i32
+    lib.ohp_sbr_env_scan.argtypes = [p] * 23 + [i64, i32, i32, p]
+    lib.ohp_sbr_env_scan.restype = i32
     return lib
 
 
@@ -210,3 +212,54 @@ def tns(spec: torch.Tensor, tfi: torch.Tensor, tco: torch.Tensor,
                                trow.data_ptr(), P, _stream(dev))
     _raise_on(rc, "tns")
     launches["tns"] += 1
+
+
+#: Envelope count (MAXE), buffered slots per frame (NSL) and output slots
+#: per frame of the SBR frame scan, fixed in ``csrc/sbr_env.cu``.
+SBR_ENV, SBR_SLOTS, SBR_OUT = 8, 38, 32
+
+
+def sbr_env(gain, noise, sine, sine_bins, env_id, prev_id, last_env, r,
+            carry_mask, nre, nim, sre, sim, er, ei, filt, tail_r, tail_i):
+    """``csrc/sbr_env.cu``: the SBR frame scan on the card, with the
+    arguments and results of ``codecs.aac.sbr.envelope_scan_torch``: (C, F,
+    8, M) float32 envelope planes, (C, F, 38) int8 env_id / prev_id, (C, F)
+    int8 last_env, (C, F, 38) float32 r / carry_mask, (C, F, 38, M) float32
+    slot planes, (C, 2, M) filt and (C, 6, M) tails.  Returns new tensors
+    (out_r, out_i (C, F, 32, M), filt, tail_r, tail_i)."""
+    dev = gain.device
+    if dev.type != "cuda":
+        raise ValueError(f"sbr_env kernel needs a CUDA tensor, got {dev}")
+    C, F, _, M = gain.shape
+    if C >= 2 ** 16:
+        raise ValueError(f"sbr_env kernel takes < 65536 channels, got {C}")
+    f32, i8 = torch.float32, torch.int8
+    for name, t in (("gain", gain), ("noise", noise), ("sine", sine),
+                    ("sine_bins", sine_bins)):
+        _check(name, t, (C, F, SBR_ENV, M), dev, f32)
+    for name, t in (("env_id", env_id), ("prev_id", prev_id)):
+        _check(name, t, (C, F, SBR_SLOTS), dev, i8)
+    _check("last_env", last_env, (C, F), dev, i8)
+    for name, t in (("r", r), ("carry_mask", carry_mask)):
+        _check(name, t, (C, F, SBR_SLOTS), dev, f32)
+    for name, t in (("nre", nre), ("nim", nim), ("sre", sre), ("sim", sim),
+                    ("er", er), ("ei", ei)):
+        _check(name, t, (C, F, SBR_SLOTS, M), dev, f32)
+    _check("filt", filt, (C, 2, M), dev, f32)
+    for name, t in (("tail_r", tail_r), ("tail_i", tail_i)):
+        _check(name, t, (C, SBR_SLOTS - SBR_OUT, M), dev, f32)
+    out_r = torch.empty((C, F, SBR_OUT, M), dtype=f32, device=dev)
+    out_i = torch.empty_like(out_r)
+    filt_out = torch.empty_like(filt)
+    tail_r_out = torch.empty_like(tail_r)
+    tail_i_out = torch.empty_like(tail_i)
+    ins = (gain, noise, sine, sine_bins, env_id, prev_id, last_env, r,
+           carry_mask, nre, nim, sre, sim, er, ei, filt, tail_r, tail_i)
+    outs = (out_r, out_i, filt_out, tail_r_out, tail_i_out)
+    lib = library()
+    with torch.cuda.device(dev):
+        rc = lib.ohp_sbr_env_scan(*(t.data_ptr() for t in ins + outs),
+                                  C, F, M, _stream(dev))
+    _raise_on(rc, "sbr_env")
+    launches["sbr_env"] += 1
+    return outs

@@ -1,7 +1,7 @@
-"""Multi-stream batched AAC-LC decode over the zigzag-nibble wire: the
-serving API.
+"""Multi-stream batched AAC-LC and HE-AAC v1 decode over the zigzag-nibble
+wire: the serving API.
 
-Port of ``decode_aac_streams_device`` of
+Port of ``decode_aac_streams_device`` and ``decode_he_streams_device`` of
 ``ohpipeline_tpu.codecs.aac.serving``.  ADTS streams sharing a sample rate
 and channel count decode in groups of ``frames_per_group`` frames.  A survey
 parse sizes the shared planes once (escape list, side plane, short-window
@@ -15,6 +15,13 @@ host into a float32 side plane.  One device pass
 (``synthesis.decode_chunk_zz``) then synthesises every stream's frames,
 with the overlap carried across groups on the device.
 
+HE-AAC v1 rides the same wire: the core's planes come from
+``native.aac_parse_group_sbr``, which also hands back each frame's SBR
+payload; the host parses and dequantises the payloads per stream
+(``sbr.py``'s ``SbrDecoder``) and builds the SBR cond planes, and one device
+pass (``sbr.SbrDeviceRunner``) runs the LC core and the SBR group of every
+stream's channels.
+
 The host parses group g + 1 while the device runs group g; its PCM is
 rounded on the device and copied back after the next group is queued.  No
 drain thread is involved, so an error propagates from the loop with
@@ -26,15 +33,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..._host import aac_bitstream, aac_native
+from ..._host import aac_bitstream, aac_native, sbr_native
+from ..._host import aac_sbr as SBR
+from . import sbr as SBRD
 from . import synthesis as SYN
-
-#: Argument order of ``synthesis.decode_chunk_zz`` before ``esc_pos``
-#: (passed as None: ``epak`` packs row*1024+pos) and after it, up to the
-#: overlap; the TnsPool planes follow the constants.
-ZZ_PLANES = ("q4", "sfb", "ssf", "ssr", "msb", "opx", "epak")
-ZZ_PLANES_AFTER_ESC = ("eva2", "side", "srow")
-TNS_PLANES = ("tfi", "tco", "tdir", "trow")
+from .synthesis import decode_planes
 
 
 def _header(streams: list) -> tuple[int, int]:
@@ -48,10 +51,11 @@ def _header(streams: list) -> tuple[int, int]:
     return nch, ri
 
 
-def _survey(streams: list, nch: int, G: int) -> tuple[int, int, int, int]:
+def _survey(streams: list, nch: int, G: int,
+            parse) -> tuple[int, int, int, int]:
     """Per-group capacities (escapes, side rows, short rows, TNS rows)
-    that fit every group of the call, sized as the reference sizes them."""
-    native = aac_native()
+    that fit every group of the call, sized as the reference sizes them;
+    ``parse`` is the native group parser of the call."""
     esc_cap = side_cap = ssf_cap = tns_cap = 0
     S = len(streams)
     pos = [0] * S
@@ -62,8 +66,8 @@ def _survey(streams: list, nch: int, G: int) -> tuple[int, int, int, int]:
         for s in range(S):
             if not live[s]:
                 continue
-            n, pos[s], pbuf = native.aac_parse_group(
-                streams[s], pos[s], channels=nch, max_frames=G, out=pbuf)
+            n, pos[s], pbuf = parse(streams[s], pos[s], channels=nch,
+                                    max_frames=G, out=pbuf)
             live[s] = n == G
             if n == 0:
                 continue
@@ -89,9 +93,10 @@ def _side_rows(b: dict, special, nch: int, SC: int, col0: int, side, srow,
     slot ``n_side`` on; returns the next free slot."""
     frames = np.unique(np.asarray(special) // nch)
     idx = np.asarray([f * nch + cc for f in frames for cc in range(nch)])
-    sub = {key: (val[idx] if key not in ("msmask", "rate_index")
-                 else (val[frames] if key == "msmask" else val))
-           for key, val in b.items()}
+    sub = {key: b[key][idx] for key in
+           ("ics", "cb", "sf", "quant", "tnsn", "tnsp", "tnsc")}
+    sub["msmask"] = b["msmask"][frames]
+    sub["rate_index"] = b["rate_index"]
     sp, _ = SYN.prepare_group(sub, len(frames), nch,
                               np.zeros(nch, np.int32))
     fmap = {int(f): j for j, f in enumerate(frames)}
@@ -103,17 +108,21 @@ def _side_rows(b: dict, special, nch: int, SC: int, col0: int, side, srow,
     return n_side
 
 
-def iter_groups(streams: list, frames_per_group: int = 64):
+def iter_groups(streams: list, frames_per_group: int = 64, *,
+                sbr: bool = False):
     """Parse ``streams`` group by group.  Yields ``(planes, counts)``: the
-    numpy wire planes of one device pass, keyed by ``ZZ_PLANES``,
+    numpy wire planes of one device pass, keyed by ``synthesis.ZZ_PLANES``,
     ``ZZ_PLANES_AFTER_ESC`` and ``TNS_PLANES`` (plus ``rate_index``), and
     ``(stream, nframes)`` for every stream still live in the group.
-    Columns of stream s are s * channels ... (s + 1) * channels - 1."""
+    Columns of stream s are s * channels ... (s + 1) * channels - 1.  With
+    ``sbr`` the streams are HE-AAC: planes["sbr"] then lists, in the order
+    of ``counts``, each stream's (payload, nbits, crc) or None per frame."""
     native = aac_native()
     nch, ri = _header(streams)
     S, G = len(streams), frames_per_group
     SC = S * nch
-    ACAP, MAXS, SSCAP, TNSCAP = _survey(streams, nch, G)
+    parse = native.aac_parse_group_sbr if sbr else native.aac_parse_group
+    ACAP, MAXS, SSCAP, TNSCAP = _survey(streams, nch, G, parse)
     pos = [0] * S
     live = [True] * S
     pshape = [np.zeros(nch, np.int32) for _ in range(S)]
@@ -131,14 +140,18 @@ def iter_groups(streams: list, frames_per_group: int = 64):
         ssfv = native.ShortSfPool(SSCAP)
         tnsv = native.TnsPool(TNSCAP)
         n_side = 0
-        counts = []
+        counts, payloads = [], []
         for s in range(S):
             if not live[s]:
                 continue
-            n, pos[s], pbuf = native.aac_parse_group(
-                streams[s], pos[s], channels=nch, max_frames=G, out=pbuf)
+            n, pos[s], pbuf = parse(streams[s], pos[s], channels=nch,
+                                    max_frames=G, out=pbuf)
             live[s] = n == G
             counts.append((s, n))
+            if sbr:
+                # a new list of new bytes objects per parse: the next
+                # stream's parse reuses pbuf's arrays but not these
+                payloads.append(pbuf["sbr"])
             if n == 0:
                 continue
             special = native.aac_prepare_rows_zz(
@@ -153,27 +166,21 @@ def iter_groups(streams: list, frames_per_group: int = 64):
         ne = esc.count.value
         epak[:ne] = esc.row[:ne] * 1024 + esc.pos[:ne]
         eva2[:ne] = esc.val[:ne]
-        yield dict(q4=q4, sfb=sfb, ssf=ssfv.sf, ssr=ssfv.row, msb=msb,
-                   opx=opx, epak=epak, eva2=eva2, side=side, srow=srow,
-                   tfi=tnsv.tfi, tco=tnsv.tco, tdir=tnsv.tdir,
-                   trow=tnsv.row, rate_index=ri), counts
+        planes = dict(q4=q4, sfb=sfb, ssf=ssfv.sf, ssr=ssfv.row, msb=msb,
+                      opx=opx, epak=epak, eva2=eva2, side=side, srow=srow,
+                      tfi=tnsv.tfi, tco=tnsv.tco, tdir=tnsv.tdir,
+                      trow=tnsv.row, rate_index=ri)
+        if sbr:
+            planes["sbr"] = payloads
+        yield planes, counts
 
 
 def to_device(planes: dict, device) -> dict:
     """Numpy wire planes -> tensors on ``device``, dtypes unchanged
-    (``rate_index`` stays a host int)."""
+    (``rate_index`` and ``sbr`` stay on the host)."""
     return {k: (torch.from_numpy(np.ascontiguousarray(v)).to(device)
                 if isinstance(v, np.ndarray) else v)
             for k, v in planes.items()}
-
-
-def decode_planes(t: dict, overlap, consts):
-    """One device pass over a group's planes on the device (``to_device``):
-    returns ``decode_chunk_zz``'s (pcm (G, S*C, 1024) float32, overlap)."""
-    return SYN.decode_chunk_zz(
-        *(t[k] for k in ZZ_PLANES), None,
-        *(t[k] for k in ZZ_PLANES_AFTER_ESC), overlap, *consts,
-        *(t[k] for k in TNS_PLANES))
 
 
 def decode_aac_streams_device(streams: list, frames_per_group: int = 64, *,
@@ -198,6 +205,94 @@ def decode_aac_streams_device(streams: list, frames_per_group: int = 64, *,
     for planes, counts in iter_groups(streams, frames_per_group):
         pcm, ov = decode_planes(to_device(planes, device), ov, consts)
         pcm16 = torch.round(pcm).clamp_(-32768, 32767).to(torch.int32)
+        if pending is not None:
+            collect(*pending)
+        pending = (pcm16, counts)
+    if pending is not None:
+        collect(*pending)
+    return [np.concatenate(o, axis=1) if o else np.zeros((nch, 0), np.int32)
+            for o in outs]
+
+
+def _sbr_frames(dec, s: int, payloads: list, nch: int, hdr0,
+                per_ch: list) -> None:
+    """Parse and dequantise stream ``s``'s SBR payloads of one group with
+    its decoder ``dec``, appending each frame's channel data and envelope
+    and noise levels to per_ch[c] = (datas, Es, Qs), c < nch."""
+    for pl in payloads:
+        if pl is None:
+            raise ValueError("frame without SBR payload")
+        payload, nbits, crc = pl
+        try:
+            chans, coupling = dec.parse_payload(payload, nbits,
+                                                stereo=(nch == 2), crc=crc)
+        except SBR.SbrError as e:
+            raise ValueError(f"stream {s}: {e}") from e
+        if hdr0 is not None and dec.header != hdr0:
+            raise ValueError("SBR header changed mid-stream")
+        if chans[0].ps is not None:
+            raise ValueError("PS (v2) stream: not served by this batch call")
+        EQ = [dec.dequant(dec.header, chans[i].grid, chans[i].env,
+                          chans[i].noise) for i in range(nch)]
+        if nch == 2 and coupling:
+            a = EQ[0][2]
+            (EL, QL), (ER, QR) = dec.unmap_coupled(
+                EQ[0][0], EQ[0][1], chans[1].env, chans[1].noise, a)
+            EQ = [(EL, QL, a), (ER, QR, a)]
+        for c in range(nch):
+            datas, Es, Qs = per_ch[c]
+            datas.append(chans[c])
+            Es.append(EQ[c][0])
+            Qs.append(EQ[c][1])
+
+
+def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
+                             device) -> list[np.ndarray]:
+    """streams: ADTS HE-AAC v1 files (bytes) sharing sample rate, channel
+    count and SBR header configuration.  Every stream's channels ride one
+    device pass per group (the LC core, then the SBR group on the
+    ``S * channels`` channel axis).  Parametric-stereo (v2) streams, frames
+    without an SBR payload, SBR data before the first SBR header and a
+    header that changes mid-stream raise ``ValueError``.  Returns
+    [(channels, nsamples) int32 PCM] per stream at twice the ADTS rate,
+    rounded half to even and clipped to the int16 range."""
+    nch, ri = _header(streams)
+    rate = aac_bitstream.parse_adts_header(streams[0]).sample_rate
+    S = len(streams)
+    SC = S * nch
+    consts = SYN.device_constants(ri, device=device)
+    sbr_native()
+    decs = [SBR.SbrDecoder(rate) for _ in range(S)]
+    runner = None
+    hdr0 = None
+    outs: list[list[np.ndarray]] = [[] for _ in streams]
+
+    def collect(pcm16, counts):                 # (S*C, G*2048) int16
+        pcm16 = pcm16.cpu().numpy()
+        for s, n in counts:
+            if n:
+                outs[s].append(pcm16[s * nch:(s + 1) * nch, :n * 2048]
+                               .astype(np.int32))
+
+    pending = None
+    for planes, counts in iter_groups(streams, frames_per_group, sbr=True):
+        # dead or short channels keep empty lists: their frames stay
+        # inactive and their output is cut off in collect()
+        per_ch: list = [([], [], []) for _ in range(SC)]
+        for (s, n), payloads in zip(counts, planes["sbr"]):
+            _sbr_frames(decs[s], s, payloads, nch, hdr0,
+                        per_ch[s * nch:(s + 1) * nch])
+        if runner is None:
+            lead = next((s for s in range(S) if decs[s].header is not None),
+                        None)
+            if lead is None:
+                raise ValueError("no SBR header in any stream")
+            hdr0 = decs[lead].header
+            if any(d.header is not None and d.header != hdr0 for d in decs):
+                raise ValueError("device batch needs one SBR header config")
+            runner = SBRD.SbrDeviceRunner(decs[lead], SC, device=device)
+        pcm16 = runner.decode_group_multi_zz(to_device(planes, device),
+                                             per_ch, consts)
         if pending is not None:
             collect(*pending)
         pending = (pcm16, counts)

@@ -334,6 +334,24 @@ def decode_chunk_zz(q4, sfb, ssf, ssr, msb, opx, esc_row, esc_pos, esc_val,
     return _overlap_add(x.reshape(Tn, B, 2048), overlap)
 
 
+#: Plane names of the serving wire, in ``decode_chunk_zz``'s argument order
+#: before ``esc_pos`` (passed as None: ``epak`` packs row*1024+pos) and after
+#: it, up to the overlap; the TnsPool planes follow the constants.
+ZZ_PLANES = ("q4", "sfb", "ssf", "ssr", "msb", "opx", "epak")
+ZZ_PLANES_AFTER_ESC = ("eva2", "side", "srow")
+TNS_PLANES = ("tfi", "tco", "tdir", "trow")
+
+
+def decode_planes(t: dict, overlap, consts):
+    """One device pass over a serving group's planes, as tensors keyed by
+    the names above: returns ``decode_chunk_zz``'s (pcm (G, S*C, 1024)
+    float32, overlap)."""
+    return decode_chunk_zz(
+        *(t[k] for k in ZZ_PLANES), None,
+        *(t[k] for k in ZZ_PLANES_AFTER_ESC), overlap, *consts,
+        *(t[k] for k in TNS_PLANES))
+
+
 def filterbank_fast(spec_t, opidx_t, overlap, M_long, M_short, W, SW):
     """spec_t (T, B, 1024) float32 spectra, opidx_t (T, B) operator
     indices, overlap (B, 1024): IMDCT matmuls, windows and the overlap-add

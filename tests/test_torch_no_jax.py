@@ -1,7 +1,8 @@
-"""The port runs where JAX is absent (it decodes FLAC and AAC-LC and runs
-the flagship step with every import of jax failing, and imports no module
-of ohpipeline_tpu.codecs, .ops or .parallel), and its chip smoke test
-refuses to run, and builds nothing, where there is no CUDA device."""
+"""The port runs where JAX is absent (it decodes FLAC, AAC-LC and HE-AAC v1
+and runs the flagship step with every import of jax failing, and imports no
+module of ohpipeline_tpu.codecs, .ops or .parallel; its HE path parses every
+SBR payload natively), and its chip smoke test refuses to run, and builds
+nothing, where there is no CUDA device."""
 
 import os
 import pathlib
@@ -20,7 +21,7 @@ _BLOCKED_JAX = textwrap.dedent("""
     import numpy as np
     from ohpipeline_tpu_torch import _host
     from ohpipeline_tpu_torch.codecs.aac.serving import (
-        decode_aac_streams_device)
+        decode_aac_streams_device, decode_he_streams_device)
     from ohpipeline_tpu_torch.codecs.flac.serving import (
         decode_flac_streams_device)
     from ohpipeline_tpu_torch.entry import entry
@@ -38,6 +39,14 @@ _BLOCKED_JAX = textwrap.dedent("""
     aac = open("tests/assets/dryrun.aac", "rb").read()
     pcm, = decode_aac_streams_device([aac], 64, device="cpu")
     assert pcm.shape == (2, 89 * 1024) and pcm.any()
+
+    def python_sbr_parser(*args, **kwargs):
+        raise AssertionError("the Python SBR bit parser was taken")
+
+    _host.aac_sbr.parse_sbr_data = python_sbr_parser
+    he = open("tests/assets/dryrun_he.aac", "rb").read()
+    pcm, = decode_he_streams_device([he], 48, device="cpu")
+    assert pcm.shape == (2, 46 * 2048) and pcm.any()
     assert not any(m == "ohpipeline_tpu.codecs" or m.startswith(
         ("ohpipeline_tpu.codecs.", "ohpipeline_tpu.ops",
          "ohpipeline_tpu.parallel")) for m in sys.modules)
