@@ -48,7 +48,26 @@ Phases, each ending in torch.cuda.synchronize():
      same call on the CPU (<= 2 LSB), stream 0's first group to sbr.py's
      numpy SbrDecoder chain fed the same core PCM (max error < 2e-3 of the
      peak, rms error < 5e-4 of the rms), and the sbr_env and TNS launch
-     counts are taken from a warm call alone.
+     counts are taken from a warm call alone;
+ 10. CELT comb post-filter kernel against its plain version on the card, bit
+     for bit (max |err| 0), on the first CELT serving group's rows (captured
+     from phase 11's first call) and on a worst case (16 streams x 32
+     frames, every frame filtered, lags 15 and 1024, tapsets 0 -> 1 -> 2
+     crossfading); both timed with CUDA events;
+ 11. the CELT serving path decode_celt_streams_device(device="cuda") at the
+     width of the JAX package's CELT serving cell (16 stereo streams, 32
+     frames per group): stream s is tests/assets/dryrun.opus's header
+     packets, its audio packets from frame 3 s on, then all 50 packets 3
+     more times, paged again with the port's build_pages.  The first 4
+     streams are held to the same call on the CPU (<= 1 LSB), stream 0 to
+     the host celt.py decode (<= 2 LSB, >= 70 dB), and the celt_comb launch
+     count is taken from a warm call alone.
+
+Each kernel's record carries its bound: the larger of the bytes it must
+move (each input read once, each output written once) over 3.35 TB/s and
+its operations over 67 TFLOP/s (float32 outside the tensor cores), the
+published peaks of an H100 SXM at 700 W, from this run's inputs.  No single
+PyTorch call computes any of these recurrences, so library_ms is null.
 
 Float32 matrix products must run in full float32 (no TF32), which is
 PyTorch's default; the script checks that the default holds before and
@@ -86,6 +105,25 @@ HE_STREAMS = 16                       # the JAX package's HE serving width
 HE_FRAMES_PER_GROUP = 48
 HE_HEADER_EVERY = 10                  # frames between the asset's SBR headers
 HE_CPU_STREAMS = 4
+CELT_ASSET = os.path.join(HERE, "tests", "assets", "dryrun.opus")
+CELT_STREAMS = 16                     # the JAX package's CELT serving width
+CELT_REPEATS = 3
+CELT_GROUP = 32
+CELT_CPU_STREAMS = 4
+HBM_BYTES_PER_S = 3.35e12             # H100 SXM, 700 W
+FP32_OPS_PER_S = 67e12
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float) -> tuple:
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take to move n_bytes and do ops float32 operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def fail(msg: str) -> None:
@@ -251,10 +289,14 @@ def check_sbr_env(name, args):
     ms = cuda_ms(lambda: sbrd.envelope_scan(*args), 20)
     plain_ms = cuda_ms(lambda: sbrd.envelope_scan_torch(*args), 2)
     C, F, _, M = args[0].shape
+    # per active slot and bin: two smoothing mixes (3 ops each) and two
+    # injections (5 each)
+    active = int((args[4] >= 0).sum())
+    b_ms, b_by = bound(nbytes(*args, *got), 16 * active * M)
     print(f"phase 8: sbr_env {name}: C={C} F={F} M={M} within 1e-5 of each "
           f"channel's peak (max |err| {err:.4g}); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms")
-    return err, ms, plain_ms
+          f"{plain_ms:.2f} ms, bound {b_ms * 1e3:.2f} us ({b_by})")
+    return err, ms, plain_ms, b_ms, b_by
 
 
 def numpy_sbr_chain(stream: bytes, core, nframes: int):
@@ -275,6 +317,99 @@ def numpy_sbr_chain(stream: bytes, core, nframes: int):
         outs.append(dec.process_frame(core[:, f].astype(np.float64), chans,
                                       coupling))
     return np.concatenate(outs, axis=1)
+
+
+def celt_streams() -> list:
+    """Stream s: dryrun.opus's OpusHead and OpusTags packets, its audio
+    packets from frame 3 s (mod 50) on, then all of them CELT_REPEATS more
+    times, paged with the port's build_pages."""
+    from ohpipeline_tpu_torch._host import base, ogg
+
+    with open(CELT_ASSET, "rb") as f:
+        data = f.read()
+    head, tags, *audio = ogg.OggReader(base.BufferReader(data)).packets()
+    out = []
+    for s in range(CELT_STREAMS):
+        pk = audio[(3 * s) % len(audio):] + audio * CELT_REPEATS
+        out.append(ogg.build_pages(s + 1, [head], bos=True)
+                   + ogg.build_pages(s + 1, [tags], first_sequence=1)
+                   + ogg.build_pages(s + 1, pk, first_sequence=2,
+                                     granule=960 * len(pk), eos=True))
+    return out
+
+
+def host_celt_decode(data: bytes) -> np.ndarray:
+    """The host celt.py decode (float64, frame by frame), int16."""
+    from ohpipeline_tpu_torch._host import base, celt, ogg
+    from ohpipeline_tpu_torch._host import split_packet_frames
+
+    st, outs = celt.CeltDecoderState(2), []
+    for pk in list(ogg.OggReader(base.BufferReader(data)).packets())[2:]:
+        for f in split_packet_frames(pk)[1]:
+            outs.append(celt.decode_frame(st, f, 960))
+    pcm = np.concatenate(outs, axis=1) * 32768.0
+    return np.clip(np.rint(pcm), -32768, 32767).astype(np.int16)
+
+
+def celt_comb_worst_case(dev, S=CELT_STREAMS, F=CELT_GROUP, seed=10):
+    """Comb rows with every frame filtered: lags cycling through (15, 15,
+    15), (1024, 1024, 1024), (15, 1024, 15), (1024, 15, 1024) and random
+    ones, tapsets (f, f + 1, f + 2) mod 3 so every crossfade between them
+    occurs, gains in [0.1, 0.75)."""
+    import torch
+    from ohpipeline_tpu_torch._host import celt
+
+    rng = np.random.default_rng(seed)
+    y = (rng.standard_normal((2 * S, 1026 + F * 960)) * 3000) \
+        .astype(np.float32)
+    Tv = rng.integers(15, 1025, (S, F, 3)).astype(np.int32)
+    fixed = ((15, 15, 15), (1024, 1024, 1024), (15, 1024, 15),
+             (1024, 15, 1024))
+    for f in range(F):
+        if f % 5 < 4:
+            Tv[:, f] = fixed[f % 5]
+    tap = (np.arange(F)[:, None] + np.arange(3)[None, :]) % 3
+    gain = rng.uniform(0.1, 0.75, (S, F, 3))
+    gt = (gain[..., None] * np.asarray(celt.COMB_GAINS)[tap][None]) \
+        .astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (y, Tv, gt)]
+
+
+def comb_ops(Tv, gt, channels: int) -> int:
+    """Float operations the comb needs for these frames: per sample 5 for
+    the crossfade and 7 for each tap set with a nonzero gain it reads (both
+    in the first 120 samples of each segment, the second alone after)."""
+    on = (gt.abs().sum(-1) > 0).cpu().numpy()             # (S, F, 3)
+    per = (120 * (5 + 7 * (on[..., 0] + on[..., 1]))
+           + 120 * (5 + 7 * (on[..., 1] + on[..., 2]))
+           + 720 * (5 + 7 * on[..., 2]))
+    return int(per.sum()) * channels
+
+
+def check_celt_comb(name, args, win2):
+    """celt_comb kernel against comb_torch on the card, bit for bit;
+    returns (max |err|, kernel ms, plain ms, bound ms, bound by)."""
+    import torch
+    from ohpipeline_tpu_torch import _kernels
+    from ohpipeline_tpu_torch.codecs.opus import celt as pc
+
+    y, Tv, gt = args
+    got = _kernels.celt_comb(y, Tv, gt, win2)
+    want = pc.comb_torch(y, Tv, gt, win2)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"celt_comb kernel != plain on {name} "
+                             f"(max |err| {err})")
+    ms = cuda_ms(lambda: _kernels.celt_comb(y, Tv, gt, win2), 20)
+    plain_ms = cuda_ms(lambda: pc.comb_torch(y, Tv, gt, win2), 2)
+    S, F = Tv.shape[:2]
+    b_ms, b_by = bound(nbytes(y, Tv, gt, win2, *got),
+                       comb_ops(Tv, gt, y.shape[0] // S))
+    print(f"phase 10: celt_comb {name}: {y.shape[0]} rows x {F} frames "
+          f"bit-exact; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by})")
+    return err, ms, plain_ms, b_ms, b_by
 
 
 def tns_worst_case(P=1024, seed=0):
@@ -326,11 +461,22 @@ def check_tns(name, arrays, dev):
     work = spec.clone()
     ms = cuda_ms(lambda: asyn.tns_scan(work, *pool), 20)
     plain_ms = cuda_ms(lambda: asyn.tns_scan_torch(work, *pool), 2)
+    # the rows in use: each read and written once with its pooled planes;
+    # per filtered bin one multiply and one add per tap of its slot's order
+    _, tfi, tco, _, trow = arrays
+    live = trow >= 0
+    nz = tco[live] != 0
+    order = np.where(nz.any(-1), 12 - np.argmax(nz[..., ::-1], -1), 0)
+    slot = tfi[live].astype(np.int64) - 1
+    taps = np.take_along_axis(order, np.clip(slot, 0, None), 1) * (slot >= 0)
+    n_rows = int(live.sum())
+    b_ms, b_by = bound(n_rows * (2 * 1024 * 4 + 1024 + 24 * 12 * 4 + 24 + 4),
+                       2 * int(taps.sum()))
     print(f"phase 6: tns {name}: {rows.numel()} rows of {spec.shape[0]} "
           f"within 1e-5 of each row's peak (max |err| "
           f"{float(err.max()):.4g}); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms")
-    return float(err.max()), ms, plain_ms
+          f"{plain_ms:.2f} ms, bound {b_ms * 1e3:.2f} us ({b_by})")
+    return float(err.max()), ms, plain_ms, b_ms, b_by
 
 
 def check_precision() -> None:
@@ -411,8 +557,12 @@ def main() -> None:
     lpc_ms = cuda_ms(lambda: lpc.lpc_synthesize(*lpc_args), 20)
     lpc_plain_ms = cuda_ms(lambda: lpc.lpc_synthesize_torch(*lpc_args), 2)
     B, N = lpc_args[0].shape
+    # per sample one multiply and one add per coefficient of the row's order
+    lpc_bound = bound(nbytes(*lpc_args, got),
+                      2 * N * int(lpc_args[3].long().sum()))
     print(f"phase 2: lpc {B}x{N} bit-exact; kernel {lpc_ms:.4f} ms, plain "
-          f"{lpc_plain_ms:.2f} ms")
+          f"{lpc_plain_ms:.2f} ms, bound {lpc_bound[0] * 1e3:.2f} us "
+          f"({lpc_bound[1]})")
 
     # --- phase 3: rice kernel vs plain on real wire planes -----------------
     planes, _meta = next(iter_groups(streams, FRAMES_PER_GROUP))
@@ -426,9 +576,13 @@ def main() -> None:
         raise AssertionError(f"rice kernel != plain (max |err| {rice_err})")
     rice_ms = cuda_ms(lambda: rice.scan_units(*lanes), 20)
     rice_plain_ms = cuda_ms(lambda: rice.scan_units_torch(*lanes), 3)
+    # per decoded sample ~10 integer operations (leading-zero count,
+    # shifts, masks, the zigzag fold), counted at the float32 rate
+    rice_bound = bound(nbytes(*lanes, got), 10 * int(lanes[4].long().sum()))
     print(f"phase 3: rice {lanes[1].shape[0]} units over "
           f"{lanes[0].shape[0] * 4} slab bytes bit-exact; kernel "
-          f"{rice_ms:.4f} ms, plain {rice_plain_ms:.2f} ms")
+          f"{rice_ms:.4f} ms, plain {rice_plain_ms:.2f} ms, bound "
+          f"{rice_bound[0] * 1e3:.2f} us ({rice_bound[1]})")
     # the whole group pass on the card against the CPU's plain pass
     group = flac.synthesise_group_rice(*(t[k] for k in flac.RICE_PLANES), 2)
     torch.cuda.synchronize()
@@ -510,7 +664,7 @@ def main() -> None:
     TB = planes0["q4"].shape[0] * planes0["q4"].shape[1]
     serving_spec = (np.random.default_rng(6).standard_normal((TB, 1024))
                     * 3000).astype(np.float32)
-    tns_err, tns_ms, tns_plain_ms = check_tns(
+    tns_err, tns_ms, tns_plain_ms, *tns_bound = check_tns(
         "serving group 0", (serving_spec, planes0["tfi"], planes0["tco"],
                             planes0["tdir"], planes0["trow"]), dev)
     worst = check_tns("worst case", tns_worst_case(), dev)
@@ -595,8 +749,8 @@ def main() -> None:
         _outs, he_first = serve_he(hstreams, "cuda")
     finally:
         sbrd.envelope_scan, sbrd.device_decode_group = scan, group
-    sbr_err, sbr_ms, sbr_plain_ms = check_sbr_env("serving group 0",
-                                                  captured["scan"])
+    sbr_err, sbr_ms, sbr_plain_ms, *sbr_bound = check_sbr_env(
+        "serving group 0", captured["scan"])
     for name, M in (("worst case", 24), ("worst case, 40 bins", 40)):
         worst = check_sbr_env(name, sbr_env_worst_case(dev, M=M))
         sbr_err = max(sbr_err, worst[0])
@@ -637,27 +791,96 @@ def main() -> None:
           f"{he_audio_s / he_wall:.1f} decoded audio s per wall s")
     check_precision()
 
+    # --- phases 10-11: CELT serving, comb post-filter kernel --------------
+    from ohpipeline_tpu_torch.codecs.opus import celt as pc
+
+    cstreams = celt_streams()
+
+    def serve_celt():
+        t0 = time.perf_counter()
+        out = pc.decode_celt_streams_device(cstreams, CELT_GROUP)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the first call (it builds the CELT entropy core) also captures the
+    # comb's arguments in group 0, wrapping the module's comb for that call
+    comb = pc.comb
+
+    def comb_rec(*args):
+        captured.setdefault("comb", args)
+        return comb(*args)
+
+    pc.comb = comb_rec
+    try:
+        _outs, celt_first = serve_celt()
+    finally:
+        pc.comb = comb
+    win2 = captured["comb"][3]
+    comb_err, comb_ms, comb_plain_ms, *comb_bound = check_celt_comb(
+        "serving group 0", captured["comb"][:3], win2)
+    worst = check_celt_comb("worst case", celt_comb_worst_case(dev), win2)
+    comb_err = max(comb_err, worst[0])
+
+    check_precision()
+    _kernels.reset_launches()
+    celt_outs, celt_wall = serve_celt()
+    celt_launches = _kernels.launches["celt_comb"]
+    if celt_launches <= 0:
+        raise AssertionError("the celt_comb kernel did not run on the CELT "
+                             "path")
+    S, CH, n = celt_outs.shape
+    celt_audio_s = S * n / 48000.0
+    cpu_celt = pc.decode_celt_streams_device(cstreams[:CELT_CPU_STREAMS],
+                                             CELT_GROUP, device="cpu")
+    celt_lsb = int(np.abs(celt_outs[:CELT_CPU_STREAMS].astype(np.int32)
+                          - cpu_celt[..., :n]).max())
+    if celt_lsb > 1:
+        raise AssertionError(f"CELT card vs CPU: {celt_lsb} LSB")
+    ref = host_celt_decode(cstreams[0])[:, :n]
+    err = np.abs(celt_outs[0].astype(np.int32) - ref)
+    snr = 20 * np.log10(np.sqrt((ref.astype(np.float64) ** 2).mean())
+                        / max(np.sqrt((err ** 2.0).mean()), 1e-9))
+    if not (err.max() <= 2 and snr >= 70.0):
+        raise AssertionError(f"CELT stream 0 vs host decode: max "
+                             f"{err.max()} LSB, {snr:.1f} dB")
+    print(f"phase 11: {S} CELT streams of {CH} channels, {celt_audio_s:.1f} "
+          f"s of audio at 48000 Hz; first {CELT_CPU_STREAMS} streams card vs "
+          f"cpu <= {celt_lsb} LSB; stream 0 vs host celt.py max "
+          f"{err.max()} LSB, {snr:.1f} dB; celt_comb launches "
+          f"{celt_launches}; wall {celt_wall:.3f} s (first call "
+          f"{celt_first:.3f} s); {celt_audio_s / celt_wall:.1f} decoded audio "
+          f"s per wall s")
+    check_precision()
+
+    def bounds(b):
+        return {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
     kernels = [
         {"name": "lpc", "route": "cuda",
          "source": "ohpipeline_tpu_torch/csrc/lpc.cu",
          "replaces": "ohpipeline_tpu/ops/lpc.py:131",
          "launches": counts["lpc"], "max_abs_err": lpc_err,
-         "ms": lpc_ms, "plain_ms": lpc_plain_ms},
+         "ms": lpc_ms, "plain_ms": lpc_plain_ms, **bounds(lpc_bound)},
         {"name": "rice", "route": "cuda",
          "source": "ohpipeline_tpu_torch/csrc/rice.cu",
          "replaces": "ohpipeline_tpu/codecs/flac/rice_jax.py:41",
          "launches": counts["rice"], "max_abs_err": rice_err,
-         "ms": rice_ms, "plain_ms": rice_plain_ms},
+         "ms": rice_ms, "plain_ms": rice_plain_ms, **bounds(rice_bound)},
         {"name": "tns", "route": "cuda",
          "source": "ohpipeline_tpu_torch/csrc/tns.cu",
          "replaces": "ohpipeline_tpu/codecs/aac/synthesis.py:287",
          "launches": tns_launches, "max_abs_err": tns_err,
-         "ms": tns_ms, "plain_ms": tns_plain_ms},
+         "ms": tns_ms, "plain_ms": tns_plain_ms, **bounds(tns_bound)},
         {"name": "sbr_env", "route": "cuda",
          "source": "ohpipeline_tpu_torch/csrc/sbr_env.cu",
          "replaces": "ohpipeline_tpu/codecs/aac/sbr_jax.py:489",
          "launches": he_launches["sbr_env"], "max_abs_err": sbr_err,
-         "ms": sbr_ms, "plain_ms": sbr_plain_ms},
+         "ms": sbr_ms, "plain_ms": sbr_plain_ms, **bounds(sbr_bound)},
+        {"name": "celt_comb", "route": "cuda",
+         "source": "ohpipeline_tpu_torch/csrc/celt_comb.cu",
+         "replaces": "ohpipeline_tpu/codecs/opus/celt_jax.py:156",
+         "launches": celt_launches, "max_abs_err": comb_err,
+         "ms": comb_ms, "plain_ms": comb_plain_ms, **bounds(comb_bound)},
     ]
     print(card_line)
     print(json.dumps({"kernels": kernels}))

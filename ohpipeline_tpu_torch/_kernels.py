@@ -34,7 +34,7 @@ NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
-launches = {"lpc": 0, "rice": 0, "tns": 0, "sbr_env": 0}
+launches = {"lpc": 0, "rice": 0, "tns": 0, "sbr_env": 0, "celt_comb": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -103,6 +103,8 @@ def _build() -> ctypes.CDLL:
     lib.ohp_tns_apply.restype = i32
     lib.ohp_sbr_env_scan.argtypes = [p] * 23 + [i64, i32, i32, p]
     lib.ohp_sbr_env_scan.restype = i32
+    lib.ohp_celt_comb.argtypes = [p] * 6 + [i64, i32, i32, p]
+    lib.ohp_celt_comb.restype = i32
     return lib
 
 
@@ -263,3 +265,42 @@ def sbr_env(gain, noise, sine, sine_bins, env_id, prev_id, last_env, r,
     _raise_on(rc, "sbr_env")
     launches["sbr_env"] += 1
     return outs
+
+
+#: Samples per frame and carried history of the CELT comb, fixed in
+#: ``csrc/celt_comb.cu``.
+CELT_N, CELT_HLEN = 960, 1026
+
+
+def celt_comb(y: torch.Tensor, Tv: torch.Tensor, gt: torch.Tensor,
+              win2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/celt_comb.cu``: the CELT comb post-filter over a group on the
+    card, with the arguments and results of ``codecs.opus.celt.comb_torch``:
+    y (R, 1026 + F * 960) float32 rows (carried history, then F frames),
+    Tv (S, F, 3) int32 lags and gt (S, F, 3, 3) float32 tap gains shared by
+    the R / S rows of a stream, win2 (120,) float32.  Returns new tensors
+    (out (R, F * 960), hist (R, 1026))."""
+    dev = y.device
+    if dev.type != "cuda":
+        raise ValueError(f"celt_comb kernel needs a CUDA tensor, got {dev}")
+    R, W = y.shape
+    S, F = Tv.shape[:2]
+    if S == 0 or R % S or W != CELT_HLEN + F * CELT_N:
+        raise ValueError(f"celt_comb: {R} rows of {W} samples do not fit "
+                         f"{S} streams of {F} frames")
+    if F * CELT_N >= 2 ** 31:
+        raise ValueError(f"celt_comb kernel takes int32 extents, got F={F}")
+    _check("y", y, (R, W), dev, torch.float32)
+    _check("Tv", Tv, (S, F, 3), dev)
+    _check("gt", gt, (S, F, 3, 3), dev, torch.float32)
+    _check("win2", win2, (120,), dev, torch.float32)
+    out = torch.empty((R, F * CELT_N), dtype=torch.float32, device=dev)
+    hist = torch.empty((R, CELT_HLEN), dtype=torch.float32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        rc = lib.ohp_celt_comb(y.data_ptr(), Tv.data_ptr(), gt.data_ptr(),
+                               win2.data_ptr(), out.data_ptr(),
+                               hist.data_ptr(), R, R // S, F, _stream(dev))
+    _raise_on(rc, "celt_comb")
+    launches["celt_comb"] += 1
+    return out, hist

@@ -3,8 +3,8 @@
 Port of the device half of ``ohpipeline_tpu.codecs.aac.sbr_jax``.  Its host
 half (``SbrStatic``, ``SbrFrameCond``, ``device_init_state`` and the cond
 builder ``build_frame_cond``, which advances the per-channel counters of the
-numpy chain in ``sbr.py``) imports no JAX and is used as it is, through
-``_host``.  The numpy cond planes and state dicts cross to the device
+numpy chain in ``sbr.py``) is the port's copy ``host/codecs/aac/sbr_host.py``,
+reached through ``_host``.  The numpy cond planes and state dicts cross to the device
 through :func:`cond_to_device` and :func:`state_to_device`.
 
 :func:`device_decode_group` is ``sbr_jax.device_decode_group`` batched over a

@@ -184,7 +184,7 @@ def to_device(planes: dict, device) -> dict:
 
 
 def decode_aac_streams_device(streams: list, frames_per_group: int = 64, *,
-                              device) -> list[np.ndarray]:
+                              device="cuda") -> list[np.ndarray]:
     """streams: ADTS AAC-LC files (bytes) sharing rate and channel count.
     Returns [(channels, nsamples) int32 PCM] per stream, rounded half to
     even and clipped to the int16 range like the host decode path."""
@@ -247,7 +247,7 @@ def _sbr_frames(dec, s: int, payloads: list, nch: int, hdr0,
 
 
 def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
-                             device) -> list[np.ndarray]:
+                             device="cuda") -> list[np.ndarray]:
     """streams: ADTS HE-AAC v1 files (bytes) sharing sample rate, channel
     count and SBR header configuration.  Every stream's channels ride one
     device pass per group (the LC core, then the SBR group on the

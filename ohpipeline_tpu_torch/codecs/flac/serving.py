@@ -147,7 +147,7 @@ def iter_groups(streams: list, frames_per_group: int = 32):
 
 
 def decode_flac_streams_device(streams: list, frames_per_group: int = 32, *,
-                               device) -> list[np.ndarray]:
+                               device="cuda") -> list[np.ndarray]:
     """streams: FLAC files (bytes) sharing a channel count (bit depths and
     lengths may differ).  Returns [(channels, nsamples) int32 PCM] per
     stream, bit-exact with the host decode."""

@@ -8,9 +8,10 @@ import torch
 from . import parallel
 
 
-def entry(device):
+def entry(device="cuda"):
     """-> (fn, args): the decode->render step and its example inputs as
-    tensors on ``device``; ``fn(*args)`` returns (rendered, peaks)."""
+    tensors on ``device`` (the card unless the caller asks for the CPU);
+    ``fn(*args)`` returns (rendered, peaks)."""
     args = tuple(torch.from_numpy(a).to(device)
                  for a in parallel.example_step_args(nframes=8, n=1024))
 

@@ -1,11 +1,16 @@
-"""The port runs where JAX is absent (it decodes FLAC, AAC-LC and HE-AAC v1
-and runs the flagship step with every import of jax failing, and imports no
-module of ohpipeline_tpu.codecs, .ops or .parallel; its HE path parses every
-SBR payload natively), and its chip smoke test refuses to run, and builds
-nothing, where there is no CUDA device."""
+"""The port stands alone: it decodes FLAC, AAC-LC, HE-AAC v1 and CELT and runs
+the flagship step with every import of jax and of ohpipeline_tpu failing, in
+the repository and in a directory that holds only the port, chip_smoke.py and
+the test assets; no module of ohpipeline_tpu is ever loaded; its HE path
+parses every SBR payload natively; its copies of the JAX package's .cc and
+.npz files are byte for byte the originals; no file of the port imports jax
+or the JAX package or builds a path into it.  Its chip smoke test refuses to
+run, and builds nothing, where there is no CUDA device."""
 
+import ast
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -14,16 +19,20 @@ import textwrap
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "ohpipeline_tpu_torch"
 
-_BLOCKED_JAX = textwrap.dedent("""
+_BLOCKED = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None          # any import of jax now fails
+    sys.modules["ohpipeline_tpu"] = None   # and of the JAX package
     import numpy as np
     from ohpipeline_tpu_torch import _host
     from ohpipeline_tpu_torch.codecs.aac.serving import (
         decode_aac_streams_device, decode_he_streams_device)
     from ohpipeline_tpu_torch.codecs.flac.serving import (
         decode_flac_streams_device)
+    from ohpipeline_tpu_torch.codecs.opus.celt import (
+        decode_celt_streams_device)
     from ohpipeline_tpu_torch.entry import entry
 
     t = np.arange(5000) / 44100.0
@@ -47,9 +56,18 @@ _BLOCKED_JAX = textwrap.dedent("""
     he = open("tests/assets/dryrun_he.aac", "rb").read()
     pcm, = decode_he_streams_device([he], 48, device="cpu")
     assert pcm.shape == (2, 46 * 2048) and pcm.any()
-    assert not any(m == "ohpipeline_tpu.codecs" or m.startswith(
-        ("ohpipeline_tpu.codecs.", "ohpipeline_tpu.ops",
-         "ohpipeline_tpu.parallel")) for m in sys.modules)
+
+    def python_entropy(*args, **kwargs):
+        raise AssertionError("the Python CELT entropy layer was taken")
+
+    _host.celt._entropy_decode_py = python_entropy
+    opus = open("tests/assets/dryrun.opus", "rb").read()
+    pcm, = decode_celt_streams_device([opus], 32, device="cpu")
+    assert pcm.shape == (2, 50 * 960) and pcm.any()
+    loaded = [m for m in sys.modules if m == "ohpipeline_tpu"
+              or m.startswith("ohpipeline_tpu.")]
+    assert loaded == ["ohpipeline_tpu"], loaded     # the blocking None
+    assert sys.modules["ohpipeline_tpu"] is None
     print("port ok without jax")
 """)
 
@@ -63,9 +81,97 @@ def _run(args, cwd, timeout=300):
 
 
 def test_port_imports_and_decodes_with_jax_blocked():
-    proc = _run([sys.executable, "-c", _BLOCKED_JAX], REPO)
+    proc = _run([sys.executable, "-c", _BLOCKED], REPO)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "port ok without jax" in proc.stdout
+
+
+def test_port_runs_from_a_directory_without_the_jax_package(tmp_path):
+    shutil.copytree(PORT, tmp_path / PORT.name,
+                    ignore=shutil.ignore_patterns("__pycache__", "*.tmp"))
+    shutil.copytree(REPO / "tests" / "assets", tmp_path / "tests" / "assets")
+    shutil.copy(REPO / "chip_smoke.py", tmp_path)
+    assert not (tmp_path / "ohpipeline_tpu").exists()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "port ok without jax" in proc.stdout
+
+
+def _copies():
+    host = PORT / "host"
+    return sorted(p for p in host.rglob("*") if p.suffix in (".cc", ".npz"))
+
+
+def test_copied_sources_and_tables_are_the_originals():
+    copies = _copies()
+    assert {p.name for p in copies} == {
+        "flac_unpack.cc", "aac_unpack.cc", "sbr_parse.cc", "celt_core.cc",
+        "tables.npz", "sbr_tables.npz", "celt_mode.npz"}
+    for p in copies:
+        original = REPO / "ohpipeline_tpu" / p.relative_to(PORT / "host")
+        assert p.read_bytes() == original.read_bytes(), p
+
+
+_JAX_TEXT = re.compile(r"\b(import\s+jax|from\s+jax)\b")
+_INTO_JAX_PKG = re.compile(r"(^|[/\\])ohpipeline_tpu([/\\]|$)")
+_FILE_LINE = re.compile(r"^ohpipeline_tpu/[\w/]+\.py:\d+(-\d+)?$")
+
+
+def _docstrings(tree) -> set:
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) \
+                    and isinstance(first.value, ast.Constant):
+                out.add(id(first.value))
+    return out
+
+
+def _faults(path: pathlib.Path) -> list:
+    text = path.read_text()
+    faults = [f"text {m.group(0)!r}" for m in _JAX_TEXT.finditer(text)]
+    tree = ast.parse(text)
+    docs = _docstrings(tree)
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            if name.split(".")[0] in ("jax", "jaxlib", "ohpipeline_tpu"):
+                faults.append(f"line {node.lineno}: imports {name}")
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs \
+                and _INTO_JAX_PKG.search(node.value) \
+                and not _FILE_LINE.match(node.value):
+            faults.append(f"line {node.lineno}: path {node.value!r}")
+    return faults
+
+
+@pytest.mark.parametrize("rel", sorted(
+    str(p.relative_to(REPO)) for p in [*PORT.rglob("*.py"),
+                                        REPO / "chip_smoke.py"]
+    if "_build" not in p.parts))
+def test_no_file_of_the_port_reaches_jax_or_the_jax_package(rel):
+    assert _faults(REPO / rel) == []
+
+
+def test_the_static_check_sees_what_it_should(tmp_path):
+    bad = tmp_path / "bad.py"
+    bad.write_text('"""doc: ohpipeline_tpu/native"""\n'
+                   "def f():\n"
+                   "    import jax.numpy as jnp\n"
+                   "    from ohpipeline_tpu import native\n"
+                   "    p = 'ohpipeline_tpu/codecs'\n"
+                   "    q = 'ohpipeline_tpu/ops/lpc.py:131'\n")
+    faults = _faults(bad)
+    assert len(faults) == 4, faults       # text, two imports, one path
 
 
 def test_chip_smoke_refuses_without_cuda():
@@ -74,13 +180,16 @@ def test_chip_smoke_refuses_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     build = REPO / "ohpipeline_tpu_torch" / "_build"
-    before = sorted(build.glob("*")) if build.exists() else None
+
+    def kernels():          # the C++ parsers of other tests build here too
+        return sorted([*build.glob("libohp_kernels*"), *build.glob("*.o")])
+
+    before = kernels()
     proc = _run([sys.executable, "chip_smoke.py"], REPO)
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
     assert '"ok": true' not in proc.stdout
-    after = sorted(build.glob("*")) if build.exists() else None
-    assert after == before, "chip_smoke.py built something without a card"
+    assert kernels() == before, "chip_smoke.py built something without a card"
 
 
 def test_chip_smoke_alone_fails(tmp_path):
