@@ -12,8 +12,9 @@ Phases, each ending in torch.cuda.synchronize():
      build the kernels of ohpipeline_tpu_torch/csrc with nvcc for sm_90a;
   2. LPC kernel against its plain PyTorch version on the card, bit-exact,
      at one serving group's shape (1152 rows x 4096: orders 0-32, shifts
-     0-31, 24-bit rows, worst-case accumulators); both timed with CUDA
-     events;
+     0-31, 24-bit rows, worst-case accumulators) and on the rows of the
+     first serving group (captured from the group pass, as phase 3 takes
+     its planes; almost all order 8); both timed with CUDA events;
   3. rice kernel against its plain version, bit-exact, on the parser's wire
      planes of the first serving group; both timed;
   4. the serving path decode_flac_streams_device(device="cuda") over all 18
@@ -63,11 +64,15 @@ Phases, each ending in torch.cuda.synchronize():
      the host celt.py decode (<= 2 LSB, >= 70 dB), and the celt_comb launch
      count is taken from a warm call alone.
 
-Each kernel's record carries its bound: the larger of the bytes it must
-move (each input read once, each output written once) over 3.35 TB/s and
-its operations over 67 TFLOP/s (float32 outside the tensor cores), the
-published peaks of an H100 SXM at 700 W, from this run's inputs.  No single
-PyTorch call computes any of these recurrences, so library_ms is null.
+A kernel's time is the mean of 20 launches captured in one CUDA graph
+(kernel_ms: a launch from Python takes longer on the host than a short
+kernel on the card); a plain version's is the mean of an eager loop between
+CUDA events (cuda_ms).  Each kernel's record carries its bound: the larger
+of the bytes it must move (each input read once, each output written once)
+over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
+tensor cores), the published peaks of an H100 SXM at 700 W, from this run's
+inputs.  No single PyTorch call computes any of these recurrences, so
+library_ms is null.
 
 Float32 matrix products must run in full float32 (no TF32), which is
 PyTorch's default; the script checks that the default holds before and
@@ -180,6 +185,33 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, reps: int) -> float:
+    """Mean device time of one fn() (a kernel launch, no host sync) over
+    reps launches captured in one CUDA graph and replayed after a warm-up:
+    a launch from Python through ctypes takes ~10 us on the host, longer
+    than a short kernel, so an eager loop would time the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def lpc_case(seed=0, B=1152, N=4096):
     """One serving group's shape: orders 0-32, shifts 0-31, stable 17- and
     25-bit rows, and 5% worst-case rows (max warm-up against max coeffs)."""
@@ -200,6 +232,65 @@ def lpc_case(seed=0, B=1152, N=4096):
                      * ((1 << 14) - 1))
     order[worst], shift[worst] = 32, 15
     return data, coeffs, shift, order
+
+
+def lpc_group_inputs(t: dict) -> list:
+    """The LPC kernel's arguments in the group pass over the FLAC wire
+    planes ``t`` (on the card): captured from flac.synthesise_group_rice,
+    wrapping ops.lpc.lpc_synthesize for that call only."""
+    from ohpipeline_tpu_torch.codecs import flac
+    from ohpipeline_tpu_torch.ops import lpc
+
+    captured, synth = [], lpc.lpc_synthesize
+
+    def rec(*args):
+        captured.append([a.clone() for a in args])
+        return synth(*args)
+
+    lpc.lpc_synthesize = rec
+    try:
+        flac.synthesise_group_rice(*(t[k] for k in flac.RICE_PLANES), 2)
+    finally:
+        lpc.lpc_synthesize = synth
+    return captured[0]
+
+
+def lpc_taps(coeffs) -> np.ndarray:
+    """(B,) taps of each row: one past its last nonzero coefficient."""
+    nz = coeffs.cpu().numpy() != 0
+    return np.where(nz.any(1), 32 - np.argmax(nz[:, ::-1], 1), 0)
+
+
+def check_lpc(name, args):
+    """LPC kernel against the plain version on the card, bit for bit;
+    returns (max |err|, kernel ms, plain ms, (bound ms, bound by))."""
+    import torch
+    from ohpipeline_tpu_torch.ops import lpc
+
+    got = lpc.lpc_synthesize(*args)
+    want = lpc.lpc_synthesize_torch(*args)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.shape == want.shape
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"lpc kernel != plain on {name} (max |err| "
+                             f"{err})")
+    ms = kernel_ms(lambda: lpc.lpc_synthesize(*args), 20)
+    plain_ms = cuda_ms(lambda: lpc.lpc_synthesize_torch(*args), 2)
+    B, N = args[0].shape
+    # per sample one multiply and one add per coefficient of the row's order
+    b = bound(nbytes(*args, got), 2 * N * int(args[3].long().sum()))
+    taps = lpc_taps(args[1])
+    pad = np.zeros(-len(taps) % 4, taps.dtype)
+    narrow = float((np.concatenate([taps, pad]).reshape(-1, 4).max(1)
+                    <= 8).mean())
+    order = np.bincount(args[3].cpu().numpy())
+    print(f"phase 2: lpc {name} {B}x{N} bit-exact; orders "
+          f"{np.flatnonzero(order).min()}-{len(order) - 1}, "
+          f"{order.max()} rows of order {order.argmax()}; blocks on the "
+          f"8-lane path {narrow:.3f}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms, bound {b[0] * 1e3:.2f} us ({b[1]})")
+    return err, ms, plain_ms, b
 
 
 def aac_streams() -> list:
@@ -286,7 +377,7 @@ def check_sbr_env(name, args):
                                  f"|err|/peak "
                                  f"{float((e / peak.clamp_min(1e-30)).max()):.3g}")
         err = max(err, float(e.max()))
-    ms = cuda_ms(lambda: sbrd.envelope_scan(*args), 20)
+    ms = kernel_ms(lambda: sbrd.envelope_scan(*args), 20)
     plain_ms = cuda_ms(lambda: sbrd.envelope_scan_torch(*args), 2)
     C, F, _, M = args[0].shape
     # per active slot and bin: two smoothing mixes (3 ops each) and two
@@ -401,7 +492,7 @@ def check_celt_comb(name, args, win2):
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(f"celt_comb kernel != plain on {name} "
                              f"(max |err| {err})")
-    ms = cuda_ms(lambda: _kernels.celt_comb(y, Tv, gt, win2), 20)
+    ms = kernel_ms(lambda: _kernels.celt_comb(y, Tv, gt, win2), 20)
     plain_ms = cuda_ms(lambda: pc.comb_torch(y, Tv, gt, win2), 2)
     S, F = Tv.shape[:2]
     b_ms, b_by = bound(nbytes(y, Tv, gt, win2, *got),
@@ -459,7 +550,7 @@ def check_tns(name, arrays, dev):
         raise AssertionError(f"tns kernel != plain on {name}: worst "
                              f"|err|/peak {float((err / peak).max()):.3g}")
     work = spec.clone()
-    ms = cuda_ms(lambda: asyn.tns_scan(work, *pool), 20)
+    ms = kernel_ms(lambda: asyn.tns_scan(work, *pool), 20)
     plain_ms = cuda_ms(lambda: asyn.tns_scan_torch(work, *pool), 2)
     # the rows in use: each read and written once with its pooled planes;
     # per filtered bin one multiply and one add per tap of its slot's order
@@ -524,7 +615,6 @@ def main() -> None:
     from ohpipeline_tpu_torch.codecs.flac.serving import (
         decode_flac_streams_device, iter_groups)
     from ohpipeline_tpu_torch.entry import entry
-    from ohpipeline_tpu_torch.ops import lpc
 
     try:
         import triton
@@ -545,28 +635,17 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  ptxas: {line.strip()}")
 
-    # --- phase 2: LPC kernel vs plain, one serving group's shape -----------
+    # --- phase 2: LPC kernel vs plain: one serving group's shape, then the
+    # rows of the first real serving group ---------------------------------
     lpc_args = [torch.from_numpy(a).to(dev) for a in lpc_case()]
-    got = lpc.lpc_synthesize(*lpc_args)
-    want = lpc.lpc_synthesize_torch(*lpc_args)
-    torch.cuda.synchronize()
-    assert got.device.type == "cuda" and got.shape == want.shape
-    lpc_err = int((got.long() - want.long()).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"lpc kernel != plain (max |err| {lpc_err})")
-    lpc_ms = cuda_ms(lambda: lpc.lpc_synthesize(*lpc_args), 20)
-    lpc_plain_ms = cuda_ms(lambda: lpc.lpc_synthesize_torch(*lpc_args), 2)
-    B, N = lpc_args[0].shape
-    # per sample one multiply and one add per coefficient of the row's order
-    lpc_bound = bound(nbytes(*lpc_args, got),
-                      2 * N * int(lpc_args[3].long().sum()))
-    print(f"phase 2: lpc {B}x{N} bit-exact; kernel {lpc_ms:.4f} ms, plain "
-          f"{lpc_plain_ms:.2f} ms, bound {lpc_bound[0] * 1e3:.2f} us "
-          f"({lpc_bound[1]})")
-
-    # --- phase 3: rice kernel vs plain on real wire planes -----------------
+    lpc_err, lpc_ms, lpc_plain_ms, lpc_bound = check_lpc("synthetic",
+                                                         lpc_args)
     planes, _meta = next(iter_groups(streams, FRAMES_PER_GROUP))
     t = flac.to_device(planes, dev)
+    lpc_err = max(lpc_err, check_lpc("serving group 0",
+                                     lpc_group_inputs(t))[0])
+
+    # --- phase 3: rice kernel vs plain on real wire planes -----------------
     lanes = rice.unit_lanes(*(t[k] for k in flac.RICE_PLANES[:7]))
     got = rice.scan_units(*lanes)
     want = rice.scan_units_torch(*lanes)
@@ -574,7 +653,7 @@ def main() -> None:
     rice_err = int((got.long() - want.long()).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"rice kernel != plain (max |err| {rice_err})")
-    rice_ms = cuda_ms(lambda: rice.scan_units(*lanes), 20)
+    rice_ms = kernel_ms(lambda: rice.scan_units(*lanes), 20)
     rice_plain_ms = cuda_ms(lambda: rice.scan_units_torch(*lanes), 3)
     # per decoded sample ~10 integer operations (leading-zero count,
     # shifts, masks, the zigzag fold), counted at the float32 rate

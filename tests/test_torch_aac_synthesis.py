@@ -9,7 +9,8 @@ wires (atol 0.05 without TNS, 0.5 with it) and to the float64 reference
 (rms <= 0.25, max <= 1 LSB).  Content: ``tests/assets/dryrun.aac`` (89
 ADTS frames, 44.1 kHz stereo, with short windows, TNS, escapes, PNS and
 M/S) and a seeded synthetic TNS pool.  The ``gpu`` tests hold the TNS kernel
-to its plain version on the card."""
+to its plain version on the card, and to the float64 reference on filters at
+the encoder's limits."""
 
 import pathlib
 
@@ -202,6 +203,324 @@ def test_apply_tns_zz_matches_jax_and_f64(case):
                                    trow), ref)
 
 
+# --- TNS: the kernel's decomposition into independent runs ------------------
+
+def _pool(P, TB=None):
+    TB = P if TB is None else TB
+    return (np.zeros((P, 1024), np.uint8), np.zeros((P, 24, 12), np.float32),
+            np.zeros((P, 24), np.uint8), np.arange(P, dtype=np.int32), TB)
+
+
+def _encoder_coeffs(rng, order=12, qc=None):
+    """Direct-form coefficients from 4-bit quantised reflection coefficients
+    (``qc`` in [-8, 7]; by default shrinking with the tap as an encoder's
+    partial correlations do)."""
+    if qc is None:
+        lim = np.minimum(7, 8 >> np.minimum(np.arange(order), 2))
+        qc = rng.integers(-lim, lim + 1)
+    qc = np.asarray(qc)
+    refl = np.where(qc >= 0, np.sin(qc / (7.5 / (np.pi / 2))),
+                    np.sin(qc / (8.5 / (np.pi / 2))))
+    return SYN._lattice_to_lpc(refl)
+
+
+def _tns_edges(seed=21):
+    """Single-bin runs (at bins 0, 500 and 1023), a slot in two separate
+    stretches, an upward and a downward run meeting at a bin, a run of
+    all-zero coefficients, an inactive slot byte (> 24) and an inactive
+    direction (2)."""
+    rng = np.random.default_rng(seed)
+    tfi, tco, tdir, trow, TB = _pool(4)
+    for j in range(4):
+        for s in range(24):
+            tco[j, s] = _encoder_coeffs(rng)
+        tdir[j] = rng.integers(0, 2, 24)
+    tfi[0, 0], tfi[0, 500], tfi[0, 1023] = 1, 2, 3
+    tfi[0, 499], tfi[0, 501] = 4, 4                  # neighbours, one slot
+    tfi[1, 100:200] = tfi[1, 300:400] = 5            # two stretches of one
+    tfi[1, 200:300] = 6                              # slot, another between
+    tfi[2, 200:300], tdir[2, 6] = 7, 0               # up, then down from
+    tfi[2, 300:451], tdir[2, 7] = 8, 1               # bin 300: they meet
+    tfi[2, 600:700], tco[2, 8] = 9, 0.0              # order 0
+    tfi[3, 10:90] = 30                               # slot byte > 24
+    tfi[3, 90:400], tdir[3, 9] = 10, 2               # direction 2
+    tfi[3, 400:800] = 11
+    spec = (rng.standard_normal((TB, 1024)) * 3000).astype(np.float32)
+    return spec, tfi, tco, tdir, trow
+
+
+def _tns_long_near_unit(seed=22):
+    """1024-bin runs of order 12, up and down, whose first reflection
+    coefficients sit at the quantiser's ends (+0.995, -0.996).  (Filters
+    with every tap at the encoder's limits are `_tns_encoder_limits`: there
+    tns_scan_torch itself drifts more than 1e-5 of the peak from the
+    float64 reference, so they are held against that.)"""
+    rng = np.random.default_rng(seed)
+    tfi, tco, tdir, trow, TB = _pool(4)
+    tfi[:] = 1
+    tdir[1::2, 0] = 1
+    for j, qc in enumerate(([7, -8, 4, -4, 2, -2, 1, -1, 1, -1, 1, -1],) * 2
+                           + ([7, -8] + [0] * 9 + [1],
+                              [-8, -8] + [0] * 9 + [1])):
+        tco[j, 0] = _encoder_coeffs(rng, qc=qc)
+    spec = (rng.standard_normal((TB, 1024)) * 3000).astype(np.float32)
+    return spec, tfi, tco, tdir, trow
+
+
+def _tns_all_slots_padded(seed=23):
+    """chip_smoke.py's worst case (all 24 slots, order 12, both directions),
+    its pooled rows interleaved with padding (trow -1) and with rows out of
+    range (trow >= TB)."""
+    spec, tfi, tco, tdir, trow = _chip_smoke().tns_worst_case(P=48, seed=seed)
+    trow = trow.copy()
+    trow[1::4], trow[3::8] = -1, 48 + 5
+    return spec, tfi, tco, tdir, trow
+
+
+def _chip_smoke():
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+TNS_STRESS = {
+    "edges": _tns_edges,
+    "long_near_unit": _tns_long_near_unit,
+    "all_slots_padded": _tns_all_slots_padded,
+    "worst_case": lambda: _chip_smoke().tns_worst_case(P=128),
+    "dryrun": _dryrun_pool,
+}
+
+
+def tns_runs(tfi, tdir):
+    """The runs csrc/tns.cu finds with ballots, as (pooled row, first bin,
+    last bin, slot): maximal stretches of one slot byte in 1..24 whose
+    direction is 0 or 1."""
+    f = tfi.astype(np.int64)
+    slot = np.clip(f - 1, 0, 23)
+    act = (f >= 1) & (f <= 24) & (np.take_along_axis(tdir, slot, 1) <= 1)
+    edge = np.ones_like(act)
+    edge[:, 1:] = f[:, 1:] != f[:, :-1]
+    last = np.ones_like(act)
+    last[:, :-1] = f[:, :-1] != f[:, 1:]
+    (j0, lo), (j1, hi) = np.nonzero(act & edge), np.nonzero(act & last)
+    assert np.array_equal(j0, j1)
+    return j0, lo, hi, slot[j0, lo]
+
+
+def _walk(xs, a, init):
+    """Filters the sequences xs (list of float32 arrays) from the histories
+    init (n, 12; init[:, t] is the output t + 1 steps back) with the
+    coefficients a (n, 12), all at once, summing the taps in csrc/tns.cu's
+    order, oldest first.  Returns the list of outputs."""
+    n, L = len(xs), max(len(x) for x in xs)
+    x = np.zeros((n, L), np.float32)
+    for i, s in enumerate(xs):
+        x[i, :len(s)] = s
+    a, h = np.asarray(a, np.float32), np.array(init, np.float32)
+    y = np.empty_like(x)
+    for p in range(L):
+        acc = np.zeros(n, np.float32)
+        for t in range(11, -1, -1):
+            acc = acc + a[:, t] * h[:, t]
+        y[:, p] = x[:, p] - acc
+        h = np.concatenate([y[:, p:p + 1], h[:, :-1]], 1)
+    return [y[i, :len(s)] for i, s in enumerate(xs)]
+
+
+def _pass_maps(a, g, C):
+    """(n, 12, 12) maps from a run's state (12 outputs, newest first) to
+    its state C zero-input steps later, as csrc/tns.cu builds them from g
+    (n, C), the response to the unit state: phi[r, c] = sum over m <= 11 - c
+    of -a[m + c] * g[C - 2 - r - m], m ascending."""
+    phi = np.zeros((len(a), 12, 12), np.float32)
+    for r in range(12):
+        for c in range(12):
+            for m in range(12 - c):
+                phi[:, r, c] = phi[:, r, c] + (-a[:, m + c]) * g[:, C - 2 - r
+                                                                  - m]
+    return phi
+
+
+def tns_kernel_model(spec, tfi, tco, tdir, trow, long=128, C=32, gate=4.0):
+    """numpy float32 model of csrc/tns.cu.  Every run of a row, upward and
+    downward, is its own chain from a zero history (the passes are not
+    sequenced).  A run of up to ``long`` bins is walked whole.  A longer one
+    is cut into K chunks of C: chunk 0 from a zero history; each chunk
+    1 <= k <= K - 2 from a zero history for its last 12 outputs T0[k]; the
+    states passed along, S[1] = chunk 0's last outputs, S[k + 1] = T0[k] +
+    phi S[k] (two sums over c, even and odd, ascending); then every chunk
+    k >= 1 walked again from S[k].  If a row of phi sums to more than
+    ``gate`` in absolute value, the run is walked whole after chunk 0."""
+    out = spec.copy()
+    TB = spec.shape[0]
+    j, lo, hi, slot = tns_runs(tfi, tdir)
+    keep = (trow[j] >= 0) & (trow[j] < TB)
+    j, lo, hi, slot = j[keep], lo[keep], hi[keep], slot[keep]
+    if not len(j):
+        return out
+    rows, a = trow[j], tco[j, slot]
+    idx = [np.arange(l, h + 1)[::-1 if tdir[jj, s] == 1 else 1]
+           for jj, l, h, s in zip(j, lo, hi, slot)]
+    xs = [out[r, i] for r, i in zip(rows, idx)]
+    long_runs = [n for n, x in enumerate(xs) if len(x) > long]
+    K = {n: -(-len(xs[n]) // C) for n in long_runs}
+    unit = np.eye(12, dtype=np.float32)[0]
+    # first round: short runs whole, chunk 0 and the tails of chunks 1 to
+    # K - 2 of the long runs, and each long run's unit-state response
+    tasks = [(xs[n] if n not in K else xs[n][:C], a[n], 0 * unit, n)
+             for n in range(len(xs))]
+    tasks += [(xs[n][k * C:(k + 1) * C], a[n], 0 * unit, (n, k))
+              for n in long_runs for k in range(1, K[n] - 1)]
+    tasks += [(np.zeros(C, np.float32), a[n], unit, (n, "g"))
+              for n in long_runs]
+    ys = dict(zip((t[3] for t in tasks),
+                  _walk(*zip(*((x, aa, i) for x, aa, i, _ in tasks)))))
+    if long_runs:
+        phi = _pass_maps(a[long_runs], np.stack([ys[n, "g"]
+                                                 for n in long_runs]), C)
+    tasks = []
+    for q, n in enumerate(long_runs):
+        state = ys[n][:-13:-1]                       # S[1]
+        if np.abs(phi[q]).sum(1).max() > gate:
+            tasks.append((xs[n][C:], a[n], state, (n, 1)))
+            continue
+        for k in range(1, K[n]):
+            tasks.append((xs[n][k * C:(k + 1) * C], a[n], state, (n, k)))
+            if k < K[n] - 1:
+                even = odd = np.zeros(12, np.float32)
+                for c in range(0, 12, 2):
+                    even = even + phi[q][:, c] * state[c]
+                    odd = odd + phi[q][:, c + 1] * state[c + 1]
+                state = ys[n, k][:-13:-1] + (even + odd)
+    if tasks:
+        for (_, _, _, (n, k)), y in zip(tasks, _walk(
+                *zip(*((x, aa, i) for x, aa, i, _ in tasks)))):
+            ys[n] = np.concatenate([ys[n][:k * C], y])
+    for n, (r, i) in enumerate(zip(rows, idx)):
+        out[r, i] = ys[n]
+    return out
+
+
+@pytest.mark.parametrize("case,long", [(c, 128) for c in TNS_STRESS]
+                         + [("worst_case", 40), ("long_near_unit", 40),
+                            ("dryrun", 40)])
+def test_tns_kernel_model_matches_plain(case, long):
+    """The kernel's decomposition (every run on its own, both directions at
+    once; runs over ``long`` bins cut into chunks with their states passed
+    along) stays within 1e-5 of each row's peak of tns_scan_torch, and of
+    the float64 reference where that takes the planes (its slot bytes stop
+    at 24).  ``long`` 40 cuts most of the worst case's runs too."""
+    spec, tfi, tco, tdir, trow = TNS_STRESS[case]()
+    want = SYN.tns_scan_torch(*_t(spec.copy(), tfi, tco, tdir, trow))
+    got = tns_kernel_model(spec, tfi, tco, tdir, trow, long=long)
+    inside = np.where(trow < spec.shape[0], trow, -1)
+    _tns_close(got, want.numpy().astype(np.float64), inside)
+    if tfi.max() <= 24:
+        _tns_close(got, SYN.apply_tns_zz_reference(
+            spec.astype(np.float64), tfi, tco, tdir, inside), inside)
+    live = inside[inside >= 0]
+    np.testing.assert_array_equal(np.delete(got, live, 0),
+                                  np.delete(spec, live, 0))
+
+
+def test_tns_long_runs_fall_on_both_sides_of_the_gate():
+    """long_near_unit's 1024-bin runs are cut; two of them pass the gate on
+    phi and two are walked whole, so the card's stress test runs both."""
+    _, _, tco, _, _ = _tns_long_near_unit()
+    a = tco[:, 0]
+    g = np.stack(_walk([np.zeros(32, np.float32)] * len(a), a,
+                       np.eye(12, dtype=np.float32)[[0] * len(a)]))
+    norms = np.abs(_pass_maps(a, g, 32)).sum(2).max(1)
+    assert (norms <= 4.0).sum() == 2 and (norms > 4.0).sum() == 2, norms
+
+
+def _tns_encoder_limits(seed):
+    """1024-bin runs of order 12, up and down, whose 12 quantised
+    reflection coefficients all sit at the encoder's limits (magnitudes 7,
+    4, then 2 as they shrink with the tap; signs drawn from the seed): the
+    filters of the largest gain an encoder emits."""
+    lim = np.minimum(7, 8 >> np.minimum(np.arange(12), 2))
+    rng = np.random.default_rng(seed)
+    tfi, tco, tdir, trow, TB = _pool(4)
+    tfi[:] = 1
+    tdir[1::2, 0] = 1
+    for j in range(4):
+        tco[j, 0] = _encoder_coeffs(rng, qc=rng.choice([-1, 1], 12) * lim)
+    spec = (rng.standard_normal((TB, 1024)) * 3000).astype(np.float32)
+    return spec, tfi, tco, tdir, trow
+
+
+TNS_LIMIT_SEEDS = range(100, 106)
+
+
+def _row_errs(got, ref, rows):
+    """|got - ref| over each row's peak of ref, row by row."""
+    return np.array([np.abs(got[r].astype(np.float64) - ref[r]).max()
+                     / np.abs(ref[r]).max() for r in rows])
+
+
+def _nearer_than_plain(got, plain, ref, rows):
+    """got is within 1e-5 of each row's peak of the float64 reference ref,
+    and wherever it is more than 1e-5 from the plain version, the plain
+    version is the further of the two from ref."""
+    err = _row_errs(got, ref, rows)
+    assert (err <= 1e-5).all(), err
+    apart = _row_errs(got, plain.astype(np.float64), rows) > 1e-5
+    plain_err = _row_errs(plain, ref, rows)
+    assert (plain_err > err)[apart].all(), (err, plain_err, apart)
+
+
+@pytest.mark.parametrize("seed", TNS_LIMIT_SEEDS)
+def test_tns_at_encoder_limits_against_f64(seed):
+    """At the encoder's limits the float32 model of csrc/tns.cu stays within
+    1e-5 of each row's peak of the float64 reference, and where it is more
+    than 1e-5 from tns_scan_torch, tns_scan_torch is the one further from
+    the reference (seed 100: 1.12e-5 against the model's 4.8e-6)."""
+    spec, tfi, tco, tdir, trow = _tns_encoder_limits(seed)
+    ref = SYN.apply_tns_zz_reference(spec.astype(np.float64), tfi, tco,
+                                     tdir, trow)
+    plain = SYN.tns_scan_torch(*_t(spec.copy(), tfi, tco, tdir,
+                                   trow)).numpy()
+    _nearer_than_plain(tns_kernel_model(spec, tfi, tco, tdir, trow), plain,
+                       ref, trow)
+
+
+def test_tns_gate_keeps_encoder_limit_runs_in_bound():
+    """Cut into chunks with no gate on phi, some encoder-limit run leaves
+    1e-5 of its row's peak of the float64 reference (phi's row sums reach
+    4-48 there and grow the error of the state passed along); behind the
+    gate none does."""
+    worst = {}
+    for gate in (np.inf, 4.0):
+        errs = []
+        for seed in TNS_LIMIT_SEEDS:
+            spec, tfi, tco, tdir, trow = _tns_encoder_limits(seed)
+            ref = SYN.apply_tns_zz_reference(spec.astype(np.float64), tfi,
+                                             tco, tdir, trow)
+            errs.append(_row_errs(tns_kernel_model(spec, tfi, tco, tdir, trow,
+                                                   gate=gate), ref,
+                                  trow).max())
+        worst[gate] = max(errs)
+    assert worst[np.inf] > 1e-5 >= worst[4.0], worst
+
+
+def test_tns_edge_case_runs():
+    """The runs of the edge case, as the ballots find them."""
+    _, tfi, _, tdir, _ = _tns_edges()
+    j, lo, hi, slot = tns_runs(tfi, tdir)
+    got = {(int(a), int(b), int(c), int(d)) for a, b, c, d in
+           zip(j, lo, hi, slot)}
+    assert {(0, 0, 0, 0), (0, 500, 500, 1), (0, 1023, 1023, 2),
+            (0, 499, 499, 3), (0, 501, 501, 3), (1, 100, 199, 4),
+            (1, 300, 399, 4), (1, 200, 299, 5), (2, 200, 299, 6),
+            (2, 300, 450, 7), (2, 600, 699, 8), (3, 400, 799, 10)} == got
+
+
 def test_tns_scan_rejects_unknown_device_and_kernel_rejects_cpu():
     spec, tfi, tco, tdir, trow = _synthetic_pool(5, P=4, TB=8, npad=1)
     with pytest.raises(ValueError, match="no kernel"):
@@ -346,6 +665,41 @@ def test_tns_kernel_matches_plain_on_card(case, cuda):
     ref = SYN.apply_tns_zz_reference(spec.astype(np.float64), tfi, tco,
                                      tdir, trow)
     _tns_close(got.cpu().numpy(), ref, trow)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(TNS_STRESS))
+def test_tns_kernel_matches_plain_on_card_stress(case, cuda):
+    spec, tfi, tco, tdir, trow = TNS_STRESS[case]()
+    args = _t(spec, tfi, tco, tdir, trow, device=cuda)
+    before = _kernels.launches["tns"]
+    got = SYN.apply_tns_zz(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["tns"] == before + 1
+    want = SYN.tns_scan_torch(args[0].clone(), *args[1:])
+    inside = np.where(trow < spec.shape[0], trow, -1)
+    _tns_close(got.cpu().numpy(), want.cpu().numpy().astype(np.float64),
+               inside)
+    live = inside[inside >= 0]
+    np.testing.assert_array_equal(np.delete(got.cpu().numpy(), live, 0),
+                                  np.delete(spec, live, 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", TNS_LIMIT_SEEDS)
+def test_tns_kernel_at_encoder_limits_on_card(seed, cuda):
+    """The kernel holds the encoder-limit filters to the float64 reference
+    as its model does (test_tns_at_encoder_limits_against_f64)."""
+    spec, tfi, tco, tdir, trow = _tns_encoder_limits(seed)
+    args = _t(spec, tfi, tco, tdir, trow, device=cuda)
+    before = _kernels.launches["tns"]
+    got = SYN.apply_tns_zz(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launches["tns"] == before + 1
+    plain = SYN.tns_scan_torch(args[0].clone(), *args[1:])
+    ref = SYN.apply_tns_zz_reference(spec.astype(np.float64), tfi, tco,
+                                     tdir, trow)
+    _nearer_than_plain(got.cpu().numpy(), plain.cpu().numpy(), ref, trow)
 
 
 @pytest.mark.gpu

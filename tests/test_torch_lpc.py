@@ -166,6 +166,151 @@ def test_cpu_tensors_take_plain_version():
     assert _kernels.launches["lpc"] == 0
 
 
+# --- the kernel's decomposition: blocks of G outputs, one accumulator a lane -
+
+def _rows(rng, orders, N, sample_bits=17, shifts=None, taps=None):
+    """One row per entry of ``orders``: stable coefficients over the first
+    ``taps`` (default: the order) taps, zero past them."""
+    B = len(orders)
+    data = rng.integers(-(1 << (sample_bits - 1)), 1 << (sample_bits - 1),
+                        (B, N)).astype(np.int32)
+    coeffs = np.zeros((B, lpc.MAX_ORDER), np.int32)
+    shift = (np.asarray(shifts, np.int32) if shifts is not None
+             else rng.integers(12, 16, B).astype(np.int32))
+    for b, o in enumerate(orders):
+        n = o if taps is None else taps[b]
+        if n:
+            c = rng.integers(-(1 << 14), 1 << 14, n).astype(np.float64)
+            gain = np.abs(c).sum() / np.exp2(shift[b])
+            coeffs[b, :n] = np.trunc(c * min(1.0, 0.9 / gain))
+    return data, coeffs, shift, np.asarray(orders, np.int32)
+
+
+def _order32_shifts(rng):
+    # shift 0 only stays in range with a tiny filter: c = +-1 on tap 31
+    data, coeffs, shift, order = _rows(rng, [32, 32, 32, 32], 300,
+                                       shifts=[0, 31, 0, 31])
+    coeffs[0] = 0
+    coeffs[0, 31] = 1
+    coeffs[2] = 0
+    coeffs[2, 31] = -1
+    data[[0, 2], 32:] &= 0xFF
+    return data, coeffs, shift, order
+
+
+def _worst_25bit(rng):
+    # max warm-up against max coefficients, then 25-bit residuals that keep
+    # the accumulator near 2^40 across block edges
+    B, N = 6, 70
+    data = rng.integers(-(1 << 24), 1 << 24, (B, N)).astype(np.int32)
+    data[:, :32] = (rng.integers(0, 2, (B, 32)) * 2 - 1) * ((1 << 24) - 1)
+    coeffs = ((rng.integers(0, 2, (B, 32)) * 2 - 1)
+              * ((1 << 14) - 1)).astype(np.int32)
+    return data, coeffs, np.full(B, 15, np.int32), np.full(B, 32, np.int32)
+
+
+STRESS = {
+    # N not a multiple of 32 (nor of 4: the 4-byte staging path), and a
+    # multiple of 4 that is not one of 128 (16-byte staging, ragged piece)
+    "n_ragged": lambda rng: _rows(rng, [8, 12, 32, 3, 0, 8, 8], 1001),
+    "n_mult4": lambda rng: _rows(rng, [8, 12, 32, 3, 0, 8, 8], 1004),
+    "order32_shift0_31": _order32_shifts,
+    # order 12 but taps only up to c[7]: the 8-lane path with a warm-up
+    # that crosses its block edge at sample 8
+    "warmup_across_block": lambda rng: _rows(rng, [12, 20, 9, 31], 200,
+                                             taps=[8, 8, 8, 6]),
+    # a block of four rows mixing orders 0, 1, 8 and 12, then 32
+    "mixed_orders": lambda rng: _rows(rng, [0, 1, 8, 12, 32, 8, 1, 0],
+                                      500),
+    # every row at most 8 taps: the 8-lane path, B = 4 k + 1 and 4 k + 3
+    "narrow_b9": lambda rng: _rows(rng, [8, 0, 1, 2, 3, 4, 8, 8, 5], 777),
+    "wide_b7": lambda rng: _rows(rng, [32, 8, 16, 9, 12, 32, 1], 256),
+    "worst_25bit": _worst_25bit,
+}
+
+
+def lane_model(data, coeffs, shift, order, G):
+    """numpy model of csrc/lpc.cu's split: lane k of a row owns output
+    n0 + k of each block of G, keeps one int64 accumulator and adds
+    c[(k - 1 - j) mod G] * s_j at step j, restarting after it finishes its
+    own output.  Terms reaching back further than G samples are lost, so
+    G = 8 holds only for rows whose taps past c[7] are zero."""
+    B, N = data.shape
+    k = np.arange(G)
+    w = coeffs.astype(np.int64)[:, (k[:, None] - 1 - k[None, :]) % G]
+    sh = shift.astype(np.int64)
+    acc = np.zeros((B, G), np.int64)
+    out = np.zeros((B, N), np.int32)
+    for n in range(N):
+        j = n % G
+        r = data[:, n].astype(np.int64)
+        s = np.where(n < order, r, lpc.wrap32(r + (acc[:, j] >> sh)))
+        acc[:, j] = 0
+        acc += w[:, :, j] * s[:, None]
+        out[:, n] = s
+    return out
+
+
+def _taps(coeffs):
+    nz = coeffs != 0
+    return np.where(nz.any(1), lpc.MAX_ORDER - np.argmax(nz[:, ::-1], 1), 0)
+
+
+WIDE_ONLY = ("order32_shift0_31", "worst_25bit")  # no row of 8 taps or fewer
+
+
+@pytest.mark.parametrize("case,G", [(c, 32) for c in sorted(STRESS)]
+                         + [(c, 8) for c in sorted(STRESS)
+                            if c not in WIDE_ONLY])
+def test_lane_model_matches_plain(case, G):
+    """The kernel's decomposition is bit-exact with the plain version on the
+    stress cases, on both paths (G = 8 for the rows it takes)."""
+    data, coeffs, shift, order = STRESS[case](np.random.default_rng(
+        sorted(STRESS).index(case)))
+    want = _port(data, coeffs, shift, order)
+    if G == 8:
+        keep = _taps(coeffs) <= 8
+        assert keep.any()
+        data, coeffs, shift, order = (a[keep] for a in (data, coeffs, shift,
+                                                        order))
+        want = want[keep]
+    np.testing.assert_array_equal(lane_model(data, coeffs, shift, order, G),
+                                  want)
+
+
+def test_lane_model_matches_plain_on_lpc_case():
+    """chip_smoke.py's synthetic group (orders 0-32, shifts 0-31, 5% worst
+    rows), cut to 64 rows x 300 samples."""
+    data, coeffs, shift, order = (a[:64] for a in _chip_smoke().lpc_case())
+    data = np.ascontiguousarray(data[:, :300])
+    np.testing.assert_array_equal(lane_model(data, coeffs, shift, order, 32),
+                                  _port(data, coeffs, shift, order))
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(STRESS))
+def test_kernel_matches_plain_on_card_stress(case, cuda):
+    args = STRESS[case](np.random.default_rng(sorted(STRESS).index(case)))
+    t = [torch.from_numpy(a).to(cuda) for a in args]
+    before = _kernels.launches["lpc"]
+    got = lpc.lpc_synthesize(*t)
+    torch.cuda.synchronize()
+    assert _kernels.launches["lpc"] == before + 1
+    assert torch.equal(got, lpc.lpc_synthesize_torch(*t))
+    np.testing.assert_array_equal(got.cpu().numpy(), _port(*args))
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card(cuda):
     # one serving group's shape, 25-bit samples, orders 0-32, shifts 13-31
