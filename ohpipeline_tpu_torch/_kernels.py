@@ -101,8 +101,9 @@ def _build() -> ctypes.CDLL:
     lib.ohp_rice_decode_units.restype = i32
     lib.ohp_tns_apply.argtypes = [p, i64, p, p, p, p, i64, p]
     lib.ohp_tns_apply.restype = i32
-    lib.ohp_sbr_env_scan.argtypes = [p] * 23 + [i64, i32, i32, p]
-    lib.ohp_sbr_env_scan.restype = i32
+    lib.ohp_sbr_env_map.argtypes = ([p] * 16 + [ctypes.c_float] + [p] * 10
+                                    + [i64, i32, i32, p])
+    lib.ohp_sbr_env_map.restype = i32
     lib.ohp_celt_comb.argtypes = [p] * 6 + [i64, i32, i32, p]
     lib.ohp_celt_comb.restype = i32
     return lib
@@ -222,20 +223,25 @@ SBR_ENV, SBR_SLOTS, SBR_OUT = 8, 38, 32
 
 
 def sbr_env(gain, noise, sine, sine_bins, env_id, prev_id, last_env, r,
-            carry_mask, nre, nim, sre, sim, er, ei, filt, tail_r, tail_i):
+            carry_mask, k_ord, noise_idx0, sine_ph0, no_noise, noise_re,
+            noise_im, parity, inject_cal, er, ei, filt, tail_r, tail_i):
     """``csrc/sbr_env.cu``: the SBR frame scan on the card, with the
-    arguments and results of ``codecs.aac.sbr.envelope_scan_torch``: (C, F,
-    8, M) float32 envelope planes, (C, F, 38) int8 env_id / prev_id, (C, F)
-    int8 last_env, (C, F, 38) float32 r / carry_mask, (C, F, 38, M) float32
-    slot planes, (C, 2, M) filt and (C, 6, M) tails.  Returns new tensors
-    (out_r, out_i (C, F, 32, M), filt, tail_r, tail_i)."""
+    arguments of ``codecs.aac.sbr.envelope_scan`` and the results of
+    ``envelope_scan_torch``: (C, F, 8, M) float32 envelope planes, (C, F,
+    38) int8 env_id / prev_id, (C, F) int8 last_env, (C, F, 38) float32 r /
+    carry_mask, (C, F, 38) int32 k_ord, (C,) int32 noise_idx0 / sine_ph0,
+    (C, F, 8) float32 no_noise, (512,) float32 noise tables, (M,) float32
+    parity, the float inject_cal, (C, F, 38, M) float32 er / ei, (C, 2, M)
+    filt and (C, 6, M) tails.  Returns new tensors (out_r, out_i (C, F, 32,
+    M), filt, tail_r, tail_i)."""
     dev = gain.device
     if dev.type != "cuda":
         raise ValueError(f"sbr_env kernel needs a CUDA tensor, got {dev}")
     C, F, _, M = gain.shape
-    if C >= 2 ** 16:
-        raise ValueError(f"sbr_env kernel takes < 65536 channels, got {C}")
-    f32, i8 = torch.float32, torch.int8
+    if F < 1 or C * F * SBR_SLOTS * M >= 2 ** 31:
+        raise ValueError(f"sbr_env kernel takes 1 <= F and C*F*38*M < 2^31, "
+                         f"got C={C} F={F} M={M}")
+    f32, i8, i32 = torch.float32, torch.int8, torch.int32
     for name, t in (("gain", gain), ("noise", noise), ("sine", sine),
                     ("sine_bins", sine_bins)):
         _check(name, t, (C, F, SBR_ENV, M), dev, f32)
@@ -244,8 +250,14 @@ def sbr_env(gain, noise, sine, sine_bins, env_id, prev_id, last_env, r,
     _check("last_env", last_env, (C, F), dev, i8)
     for name, t in (("r", r), ("carry_mask", carry_mask)):
         _check(name, t, (C, F, SBR_SLOTS), dev, f32)
-    for name, t in (("nre", nre), ("nim", nim), ("sre", sre), ("sim", sim),
-                    ("er", er), ("ei", ei)):
+    _check("k_ord", k_ord, (C, F, SBR_SLOTS), dev, i32)
+    for name, t in (("noise_idx0", noise_idx0), ("sine_ph0", sine_ph0)):
+        _check(name, t, (C,), dev, i32)
+    _check("no_noise", no_noise, (C, F, SBR_ENV), dev, f32)
+    for name, t in (("noise_re", noise_re), ("noise_im", noise_im)):
+        _check(name, t, (512,), dev, f32)
+    _check("parity", parity, (M,), dev, f32)
+    for name, t in (("er", er), ("ei", ei)):
         _check(name, t, (C, F, SBR_SLOTS, M), dev, f32)
     _check("filt", filt, (C, 2, M), dev, f32)
     for name, t in (("tail_r", tail_r), ("tail_i", tail_i)):
@@ -256,12 +268,15 @@ def sbr_env(gain, noise, sine, sine_bins, env_id, prev_id, last_env, r,
     tail_r_out = torch.empty_like(tail_r)
     tail_i_out = torch.empty_like(tail_i)
     ins = (gain, noise, sine, sine_bins, env_id, prev_id, last_env, r,
-           carry_mask, nre, nim, sre, sim, er, ei, filt, tail_r, tail_i)
+           carry_mask, k_ord, noise_idx0, sine_ph0, no_noise, noise_re,
+           noise_im, parity)
     outs = (out_r, out_i, filt_out, tail_r_out, tail_i_out)
     lib = library()
     with torch.cuda.device(dev):
-        rc = lib.ohp_sbr_env_scan(*(t.data_ptr() for t in ins + outs),
-                                  C, F, M, _stream(dev))
+        rc = lib.ohp_sbr_env_map(
+            *(t.data_ptr() for t in ins), ctypes.c_float(inject_cal),
+            *(t.data_ptr() for t in (er, ei, filt, tail_r, tail_i) + outs),
+            C, F, M, _stream(dev))
     _raise_on(rc, "sbr_env")
     launches["sbr_env"] += 1
     return outs
@@ -278,8 +293,9 @@ def celt_comb(y: torch.Tensor, Tv: torch.Tensor, gt: torch.Tensor,
     card, with the arguments and results of ``codecs.opus.celt.comb_torch``:
     y (R, 1026 + F * 960) float32 rows (carried history, then F frames),
     Tv (S, F, 3) int32 lags and gt (S, F, 3, 3) float32 tap gains shared by
-    the R / S rows of a stream, win2 (120,) float32.  Returns new tensors
-    (out (R, F * 960), hist (R, 1026))."""
+    the R / S rows of a stream, win2 (120,) float32.  The kernel copies
+    rows 8 bytes at a time, so y must be 8-byte aligned.  Returns new
+    tensors (out (R, F * 960), hist (R, 1026))."""
     dev = y.device
     if dev.type != "cuda":
         raise ValueError(f"celt_comb kernel needs a CUDA tensor, got {dev}")
@@ -294,6 +310,8 @@ def celt_comb(y: torch.Tensor, Tv: torch.Tensor, gt: torch.Tensor,
     _check("Tv", Tv, (S, F, 3), dev)
     _check("gt", gt, (S, F, 3, 3), dev, torch.float32)
     _check("win2", win2, (120,), dev, torch.float32)
+    if y.data_ptr() % 8:
+        raise ValueError("celt_comb kernel: y is not 8-byte aligned")
     out = torch.empty((R, F * CELT_N), dtype=torch.float32, device=dev)
     hist = torch.empty((R, CELT_HLEN), dtype=torch.float32, device=dev)
     lib = library()

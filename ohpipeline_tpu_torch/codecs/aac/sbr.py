@@ -11,11 +11,12 @@ through :func:`cond_to_device` and :func:`state_to_device`.
 leading channel axis ``C`` in place of ``jax.vmap``: analysis QMF (two
 float32 products over shifted block slices), the 38-slot windows on the
 delayed-output timeline, the HF generator, the cond expansion, the envelope
-adjustment, the noise and sine planes regenerated from the counter seeds,
-the frame scan and the synthesis QMF.  The frame scan (smoothing, injection
-and the 6-slot tail carry, sequential over frames) runs as the hand-written
-kernel ``csrc/sbr_env.cu`` on CUDA tensors and as its plain version
-:func:`envelope_scan_torch` on CPU tensors.  Matrix products stay
+adjustment, the frame scan and the synthesis QMF.  The frame scan
+(smoothing, noise and sine injection with the noise and sine values
+regenerated from the counter seeds, and the 6-slot tail carry) runs as the
+hand-written kernel ``csrc/sbr_env.cu`` on CUDA tensors and as its plain
+version, :func:`noise_sine_planes` followed by :func:`envelope_scan_torch`,
+on CPU tensors.  Matrix products stay
 ``torch.matmul`` in float32 with TF32 off, as the reference runs
 ``Precision.HIGHEST``.
 
@@ -148,21 +149,83 @@ def envelope_scan_torch(gain, noise, sine, sine_bins, env_id, prev_id,
             tail_i)
 
 
+def _onehot(env_id):
+    """(..., NSL) slot -> envelope ids -> (..., NSL, MAXE) float32 one-hot
+    rows; id -1 gives an all-zero row."""
+    return (env_id.long()[..., None]
+            == torch.arange(MAXE, device=env_id.device)).to(torch.float32)
+
+
+def slot_order(env_id):
+    """(C, F, NSL) int32: the number of active slots (env_id >= 0) before
+    each slot of a channel's group, in (frame, slot) order.  The host
+    advances noise_index by M and sine_index by 1 per active slot, so this
+    count places every slot on the counters."""
+    act = (env_id >= 0).reshape(env_id.shape[0], -1).to(torch.int32)
+    return (torch.cumsum(act, 1, dtype=torch.int32) - act) \
+        .reshape(env_id.shape)
+
+
+def noise_sine_planes(env_id, sine_bins, k_ord, noise_idx0, sine_ph0,
+                      no_noise, noise_re, noise_im, parity, inject_cal):
+    """The (C, F, NSL, M) float32 noise and sine value planes (nre, nim,
+    sre, sim) of the frame scan, regenerated from the counter seeds:
+    env_id (C, F, NSL) and sine_bins (C, F, MAXE, M) as the scan takes
+    them, k_ord (:func:`slot_order`), noise_idx0 / sine_ph0 (C,) int32 the
+    noise-table index and sine phase before the group, no_noise (C, F,
+    MAXE) float32 (1 = no noise in that envelope), the 512-entry noise
+    tables, the (M,) parity row of +-1 and the float ``inject_cal``.  Every
+    value is a table entry times 0 or 1, or 0 or +-inject_cal, so it is
+    exact."""
+    M = sine_bins.shape[-1]
+    A = _onehot(env_id)
+    k = k_ord.long()
+    nidx = ((noise_idx0.long()[:, None, None] + k * M)[..., None] + 1
+            + torch.arange(M, device=env_id.device)) & 511
+    # zero on inactive slots and inside no-noise envelopes (the counters
+    # still advance there)
+    nn_slot = torch.matmul(A, no_noise[..., None])[..., 0]
+    nmask = ((env_id >= 0).to(torch.float32) * (1.0 - nn_slot))[..., None]
+    nre = noise_re[nidx] * nmask
+    nim = noise_im[nidx] * nmask
+    ph = ((sine_ph0.long()[:, None, None] + k) & 3)[..., None]
+    ph_re = torch.where(ph == 0, 1.0, torch.where(ph == 2, -1.0, 0.0))
+    ph_im = torch.where(ph == 1, 1.0, torch.where(ph == 3, -1.0, 0.0))
+    sine_slot = torch.matmul(A, sine_bins)                  # (C, F, NSL, M)
+    sre = ph_re * sine_slot * inject_cal
+    sim = ph_im * parity * sine_slot * inject_cal
+    return nre, nim, sre, sim
+
+
+def plane_args(gain, noise, sine, sine_bins, env_id, prev_id, last_env, r,
+               carry_mask, k_ord, noise_idx0, sine_ph0, no_noise, noise_re,
+               noise_im, parity, inject_cal, er, ei, filt, tail_r, tail_i):
+    """The frame scan's compact arguments (as :func:`envelope_scan` and the
+    kernel take them) -> those of :func:`envelope_scan_torch`, with the
+    noise and sine planes of :func:`noise_sine_planes`."""
+    planes = noise_sine_planes(env_id, sine_bins, k_ord, noise_idx0,
+                               sine_ph0, no_noise, noise_re, noise_im,
+                               parity, inject_cal)
+    return (gain, noise, sine, sine_bins, env_id, prev_id, last_env, r,
+            carry_mask, *planes, er, ei, filt, tail_r, tail_i)
+
+
 def envelope_scan(*args):
-    """The frame scan (arguments and results of
-    :func:`envelope_scan_torch`): the ``csrc/sbr_env.cu`` kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    """The frame scan on its compact arguments (:func:`plane_args`;
+    results of :func:`envelope_scan_torch`): the ``csrc/sbr_env.cu``
+    kernel for CUDA tensors; for CPU tensors its plain version,
+    :func:`noise_sine_planes` followed by :func:`envelope_scan_torch`."""
     dev = args[0].device
     if dev.type == "cuda":
         return _kernels.sbr_env(*args)
     if dev.type == "cpu":
-        return envelope_scan_torch(*args)
+        return envelope_scan_torch(*plane_args(*args))
     raise ValueError(f"envelope_scan: no kernel for device {dev}")
 
 
 def envelope_inputs(static: SbrStatic, pcm, cond: dict, state: dict):
     """Everything of :func:`device_decode_group` up to the frame scan.
-    Returns (scan arguments, as :func:`envelope_scan_torch` takes them;
+    Returns (scan arguments, the compact form :func:`envelope_scan` takes;
     (Xre_ext, Xim_ext) the (C, 6 + F*32, 32) low-band slot timeline; the
     new ana_hist, x_hist_re/im and pre_re/im state)."""
     C, F, _ = pcm.shape
@@ -265,9 +328,7 @@ def envelope_inputs(static: SbrStatic, pcm, cond: dict, state: dict):
                             sine_in_band(mapL))
     env_id = cond["env_id"]                                 # (C, F, 38) int8
     # slot -> envelope one-hot; env_id -1 gives an all-zero row
-    A = (env_id.long()[..., None]
-         == torch.arange(MAXE, device=dev)).to(torch.float32)
-    active = env_id >= 0
+    A = _onehot(env_id)
 
     # ---- envelope adjustment --------------------------------------------
     Eslot = Er * Er + Ei * Ei                               # (C, F, 38, M)
@@ -312,36 +373,18 @@ def envelope_inputs(static: SbrStatic, pcm, cond: dict, state: dict):
     noise_lvl = noise_lvl * boost
     sine_lvl = sine_lvl * boost
 
-    # ---- noise and sine planes from the counter seeds -------------------
-    # (the host advances noise_index by M and sine_index by 1 per active
-    # slot in (frame, slot) order; an integer cumsum walks the same path)
-    act_flat = active.reshape(C, F * NSL).to(torch.int64)
-    k_ord = torch.cumsum(act_flat, 1) - act_flat            # (C, F*NSL)
-    nstart = cond["noise_idx0"][:, :1].to(torch.int64) + k_ord * M
-    nidx = (nstart[..., None] + 1 + torch.arange(M, device=dev)) & 511
-    nre = k["noise_re"][nidx].reshape(C, F, NSL, M)
-    nim = k["noise_im"][nidx].reshape(C, F, NSL, M)
-    # zero on inactive slots and inside no-noise envelopes (the counters
-    # still advance there)
-    nn_slot = torch.matmul(A, cond["no_noise"][..., None])[..., 0]
-    nmask = (active.to(torch.float32) * (1.0 - nn_slot))[..., None]
-    nre = nre * nmask
-    nim = nim * nmask
-    ph = ((cond["sine_ph0"][:, :1].to(torch.int64) + k_ord) & 3) \
-        .reshape(C, F, NSL, 1)
-    ph_re = torch.where(ph == 0, 1.0, torch.where(ph == 2, -1.0, 0.0))
-    ph_im = torch.where(ph == 1, 1.0, torch.where(ph == 3, -1.0, 0.0))
-    sine_slot = torch.matmul(A, sine_bins)                  # (C, F, 38, M)
-    cal = float(static.inject_cal)
-    sre = ph_re * sine_slot * cal
-    sim = ph_im * k["parity"] * sine_slot * cal
-
+    # ---- the counters of the noise and sine planes, which the frame scan
+    # regenerates (noise_sine_planes)
     last = cond["last_env"]                                 # (C, F, E) 0/1
     last_id = torch.where(last.sum(-1) > 0, last.argmax(-1), -1) \
         .to(torch.int8)
     args = (gain, noise_lvl, sine_lvl, sine_bins, env_id,
             cond["prev_id"], last_id, cond["r"], cond["carry_mask"],
-            nre, nim, sre, sim, Er.contiguous(), Ei.contiguous(),
+            slot_order(env_id), cond["noise_idx0"][:, 0].to(torch.int32),
+            cond["sine_ph0"][:, 0].to(torch.int32),
+            cond["no_noise"].contiguous(), k["noise_re"], k["noise_im"],
+            k["parity"], float(static.inject_cal), Er.contiguous(),
+            Ei.contiguous(),
             *(state[k].contiguous() for k in ("filt", "tail_r", "tail_i")))
     return args, (Xre_ext, Xim_ext), new_state
 

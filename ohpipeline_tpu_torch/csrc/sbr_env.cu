@@ -1,4 +1,5 @@
-// SBR envelope smoothing, injection and tail carry for Hopper (sm_90a).
+// SBR envelope smoothing, noise and sine injection and tail carry for Hopper
+// (sm_90a), as a map over (channel, frame, slot, bin).
 //
 // Replaces the frame scan of `device_decode_group` in
 // ohpipeline_tpu/codecs/aac/sbr_jax.py:489-559 (`frame_step` under
@@ -14,31 +15,35 @@
 //   - slots 0-31 are the frame's output, slots 32-37 the next frame's tail;
 //   - a frame with a last envelope leaves that envelope's gain and noise
 //     level in `filt`.
-// The JAX program builds one-hot slot -> envelope matrices and multiplies
-// them into the per-envelope planes; here env_id, prev_id and last_env are
-// the small integer indices themselves.
+// The noise value of an active slot is entry (noise_idx0 + k * M + 1 + m)
+// mod 512 of the noise tables, times 1 - no_noise of its envelope, and its
+// sine value is +-inject_cal on the axis of phase (sine_ph0 + k) mod 4 where
+// its envelope has a sine in bin m (the imaginary one signed by the bin's
+// parity), k being the number of active slots before it in the group
+// (k_ord): the host advances its counters by M and by 1 per active slot.
 //
-// Every operation is per bin m, and within a frame the slots do not depend
-// on each other: only the 6-slot tail and `filt` cross from one frame to
-// the next.  So one thread runs one (channel, slot, bin) through the F
-// frames: a block holds the 38 slots of one channel's bins (up to 26 bins,
-// so at most 988 threads), neighbouring threads on neighbouring bins, so
-// each load of the (C, F, 38, M) planes is coalesced.  The tail moves from
-// the threads of slots 32-37 to those of slots 0-5 through shared memory,
-// with two barriers a frame (everyone has read the old tail; the new one is
-// written); each thread follows `filt` itself from last_env.  What bounds
-// it: the F-step chain of barriers and the loads of each frame, ~6 float
-// planes of (F, 38, M) per channel.  At the 16-stream serving group (C =
-// 32, F = 48, M = 24) this is 29,184 threads and took 0.098 ms on an
-// NVIDIA H100 80GB HBM3 (700 W), against 1.58 ms for one thread per
-// (channel, bin) walking all 48 x 38 slots (768 threads: one warp on each
-// of 24 SMs, which could not hide the latency of its loads).
-// Regenerating the noise and sine planes here from the counter seeds,
-// instead of reading them, is a later speed step.
+// The scan carries only two things from frame to frame, and neither needs
+// the previous frame's carry:
+//   - the tail: frame f's carried slot s < 6 is frame f - 1's output slot
+//     32 + s, whose own carried value, if it has one, is the zero pad (a
+//     carried slot >= 6 reads zeros);
+//   - `filt`: the gain and noise of the last envelope of the latest earlier
+//     frame that has one, or the carried input: a selection, not a sum.
+// So nothing is sequential: one thread computes one (channel, frame, slot,
+// bin) of the (C, F, 38, M) planes, recomputing frame f - 1's slot 32 + s
+// where it is carried and walking back over the channel's last_env bytes
+// (L1-resident) where it smooths against `filt`.  At the 16-stream serving
+// group (C = 32, F = 48, M = 24) that is 1.4 million threads over every SM,
+// neighbouring threads on neighbouring bins, so the plane loads and the
+// stores coalesce.  What bounds it is bytes: the envelope planes, the
+// patched slots er / ei and the output planes (~26 MB at that shape); the
+// noise and sine values are made here from the counters and tables rather
+// than read as four more slot planes.
 //
 // The arithmetic is written with explicit round-to-nearest float ops in
 // the plain version's order (no fused multiply-add), so the kernel repeats
-// `envelope_scan_torch` bit for bit on the card.
+// `noise_sine_planes` followed by `envelope_scan_torch` bit for bit on the
+// card.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -49,7 +54,27 @@ constexpr int kEnv = 8;                 // MAXE envelope rows per frame
 constexpr int kSlots = 38;              // NSL buffered slots per frame
 constexpr int kOut = 32;                // slots a frame outputs
 constexpr int kTail = kSlots - kOut;    // slots carried to the next frame
-constexpr int kTile = 26;               // bins per block: 26 x 38 <= 1024
+constexpr int kThreads = 256;
+
+struct Args {
+  const float *gain, *noise, *sine, *sine_bins;      // (C, F, 8, M)
+  const int8_t *env_id, *prev_id;                    // (C, F, 38)
+  const int8_t* last_env;                            // (C, F)
+  const float *r, *carry_mask;                       // (C, F, 38)
+  const int32_t* k_ord;                              // (C, F, 38)
+  const int32_t *noise_idx0, *sine_ph0;              // (C,)
+  const float* no_noise;                             // (C, F, 8)
+  const float *noise_re, *noise_im;                  // (512,)
+  const float* parity;                               // (M,)
+  float cal;
+  const float *er, *ei;                              // (C, F, 38, M)
+  const float* filt;                                 // (C, 2, M)
+  const float *tail_r, *tail_i;                      // (C, 6, M)
+  float *out_r, *out_i;                              // (C, F, 32, M)
+  float* filt_out;                                   // (C, 2, M)
+  float *tail_r_out, *tail_i_out;                    // (C, 6, M)
+  int F, M;
+};
 
 __device__ __forceinline__ float mix(float r, float prev, float cur) {
   return __fadd_rn(__fmul_rn(r, prev), __fmul_rn(__fsub_rn(1.0f, r), cur));
@@ -62,104 +87,142 @@ __device__ __forceinline__ float inject(float x, float g, float re, float n,
                    __fmul_rn(s, l));
 }
 
-// grid (bin tiles, C), block (tile, kSlots)
-__global__ void sbr_env_scan(
-    const float* __restrict__ gain, const float* __restrict__ noise,
-    const float* __restrict__ sine, const float* __restrict__ sine_bins,
-    const int8_t* __restrict__ env_id, const int8_t* __restrict__ prev_id,
-    const int8_t* __restrict__ last_env, const float* __restrict__ r,
-    const float* __restrict__ carry_mask, const float* __restrict__ nre,
-    const float* __restrict__ nim, const float* __restrict__ sre,
-    const float* __restrict__ sim, const float* __restrict__ er,
-    const float* __restrict__ ei, const float* __restrict__ filt,
-    const float* __restrict__ tail_r, const float* __restrict__ tail_i,
-    float* __restrict__ out_r, float* __restrict__ out_i,
-    float* __restrict__ filt_out, float* __restrict__ tail_r_out,
-    float* __restrict__ tail_i_out, int F, int M) {
-  __shared__ float held_r[kTail][kTile], held_i[kTail][kTile];
-  const int tx = threadIdx.x;
-  const int s = threadIdx.y;
-  const int m = blockIdx.x * blockDim.x + tx;
-  const int64_t c = blockIdx.y;
-  const bool live = m < M;
-  const int mm = live ? m : 0;          // dead lanes read bin 0, store nothing
-  float fg = filt[(c * 2) * M + mm];
-  float fn = filt[(c * 2 + 1) * M + mm];
-  if (s < kTail) {
-    held_r[s][tx] = tail_r[(c * kTail + s) * M + mm];
-    held_i[s][tx] = tail_i[(c * kTail + s) * M + mm];
-  }
-  __syncthreads();
-  for (int f = 0; f < F; ++f) {
-    const int64_t cf = c * F + f;
-    const int64_t cs = cf * kSlots + s;
-    const int64_t q = cs * M + mm;                    // this slot's bin
-    const float* G = gain + cf * kEnv * M + mm;       // envelope e at e * M
-    const float* N = noise + cf * kEnv * M + mm;
-    const int e = env_id[cs];
-    const int p = prev_id[cs];
-    const int ec = e < 0 ? 0 : e;                     // clamped, then selected
-    const int pc = p < 0 || p >= kEnv ? 0 : p;
-    float xr = er[q], xi = ei[q];
-    if (carry_mask[cs] > 0.0f) {                      // the tail, then zeros
-      const int k = s < kTail ? s : 0;
-      xr = s < kTail ? held_r[k][tx] : 0.0f;
-      xi = s < kTail ? held_i[k][tx] : 0.0f;
+// The carried gain and noise level of bin m at the start of frame f: those
+// of the last envelope of the latest frame before f that has one, else the
+// input filt.
+__device__ __forceinline__ void filt_at(const Args& a, int c, int f, int m,
+                                        float* fg, float* fn) {
+  const int8_t* le = a.last_env + c * a.F;
+  for (int k = f - 1; k >= 0; --k) {
+    const int e = le[k];
+    if (e >= 0) {
+      const int q = ((c * a.F + k) * kEnv + e) * a.M + m;
+      *fg = a.gain[q];
+      *fn = a.noise[q];
+      return;
     }
-    const float gp = p < 0 ? 0.0f : (p >= kEnv ? fg : G[pc * M]);
-    const float np = p < 0 ? 0.0f : (p >= kEnv ? fn : N[pc * M]);
-    const float g = mix(r[cs], gp, G[ec * M]);
-    const float n = mix(r[cs], np, N[ec * M]);
-    const float sl = sine[(cf * kEnv + ec) * M + mm];
-    const float nb = __fsub_rn(1.0f, sine_bins[(cf * kEnv + ec) * M + mm]);
-    const float yr = e >= 0 ? inject(xr, g, nre[q], n, nb, sre[q], sl) : xr;
-    const float yi = e >= 0 ? inject(xi, g, nim[q], n, nb, sim[q], sl) : xi;
-    __syncthreads();                                  // old tail read
-    if (s < kOut) {
-      if (live) {
-        out_r[(cf * kOut + s) * M + m] = yr;
-        out_i[(cf * kOut + s) * M + m] = yi;
+  }
+  *fg = a.filt[(c * 2) * a.M + m];
+  *fn = a.filt[(c * 2 + 1) * a.M + m];
+}
+
+// Slot s of frame f, bin m, adjusted from its input (xr, xi).
+__device__ __forceinline__ void adjust(const Args& a, int c, int f, int s,
+                                       int m, float xr, float xi, float* yr,
+                                       float* yi) {
+  const int cf = c * a.F + f;
+  const int cs = cf * kSlots + s;
+  const int e = a.env_id[cs];
+  if (e < 0) {
+    *yr = xr;
+    *yi = xi;
+    return;
+  }
+  const int p = a.prev_id[cs];
+  const float* G = a.gain + cf * kEnv * a.M + m;     // envelope j at j * M
+  const float* N = a.noise + cf * kEnv * a.M + m;
+  float gp = 0.0f, np = 0.0f;
+  if (p >= kEnv) {
+    filt_at(a, c, f, m, &gp, &np);
+  } else if (p >= 0) {
+    gp = G[p * a.M];
+    np = N[p * a.M];
+  }
+  const float rr = a.r[cs];
+  const float g = mix(rr, gp, G[e * a.M]);
+  const float n = mix(rr, np, N[e * a.M]);
+  const int qe = (cf * kEnv + e) * a.M + m;
+  const float sl = a.sine[qe];
+  const float sb = a.sine_bins[qe];
+  const float nb = __fsub_rn(1.0f, sb);
+  const int k = a.k_ord[cs];
+  const int ni = ((a.noise_idx0[c] & 511) + k * a.M + 1 + m) & 511;
+  const float nm = __fsub_rn(1.0f, a.no_noise[cf * kEnv + e]);
+  const float nre = __fmul_rn(a.noise_re[ni], nm);
+  const float nim = __fmul_rn(a.noise_im[ni], nm);
+  const int ph = (a.sine_ph0[c] + k) & 3;
+  const float ph_re = ph == 0 ? 1.0f : (ph == 2 ? -1.0f : 0.0f);
+  const float ph_im = ph == 1 ? 1.0f : (ph == 3 ? -1.0f : 0.0f);
+  const float sre = __fmul_rn(__fmul_rn(ph_re, sb), a.cal);
+  const float sim =
+      __fmul_rn(__fmul_rn(__fmul_rn(ph_im, a.parity[m]), sb), a.cal);
+  *yr = inject(xr, g, nre, n, nb, sre, sl);
+  *yi = inject(xi, g, nim, n, nb, sim, sl);
+}
+
+// grid (ceil(C * F * 38 * M / kThreads)), block (kThreads): thread t is bin
+// m = t mod M of slot s of frame f of channel c, t = ((c F + f) 38 + s) M + m
+__global__ void __launch_bounds__(kThreads)
+sbr_env_map(const Args a, int total) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const int m = t % a.M;
+  const int cs = t / a.M;
+  const int s = cs % kSlots;
+  const int cf = cs / kSlots;
+  const int f = cf % a.F;
+  const int c = cf / a.F;
+  if (s >= kOut && f < a.F - 1) return;   // read by frame f + 1 as its tail
+  float xr, xi;
+  if (a.carry_mask[cs] > 0.0f) {          // the tail, then zeros
+    if (s >= kTail) {
+      xr = xi = 0.0f;
+    } else if (f == 0) {
+      xr = a.tail_r[(c * kTail + s) * a.M + m];
+      xi = a.tail_i[(c * kTail + s) * a.M + m];
+    } else {                              // frame f - 1's slot 32 + s
+      const int ps = cs - kSlots + kOut;
+      float pr = 0.0f, pi = 0.0f;
+      if (!(a.carry_mask[ps] > 0.0f)) {
+        pr = a.er[ps * a.M + m];
+        pi = a.ei[ps * a.M + m];
       }
-    } else {
-      held_r[s - kOut][tx] = yr;
-      held_i[s - kOut][tx] = yi;
+      adjust(a, c, f - 1, kOut + s, m, pr, pi, &xr, &xi);
     }
-    __syncthreads();                                  // new tail written
-    const int le = last_env[cf];
-    if (le >= 0) {
-      fg = G[le * M];
-      fn = N[le * M];
-    }
+  } else {
+    xr = a.er[t];
+    xi = a.ei[t];
   }
-  if (!live) return;
-  if (s >= kOut) {
-    tail_r_out[(c * kTail + s - kOut) * M + m] = held_r[s - kOut][tx];
-    tail_i_out[(c * kTail + s - kOut) * M + m] = held_i[s - kOut][tx];
-  } else if (s == 0) {
-    filt_out[(c * 2) * M + m] = fg;
-    filt_out[(c * 2 + 1) * M + m] = fn;
+  float yr, yi;
+  adjust(a, c, f, s, m, xr, xi, &yr, &yi);
+  if (s < kOut) {
+    a.out_r[(cf * kOut + s) * a.M + m] = yr;
+    a.out_i[(cf * kOut + s) * a.M + m] = yi;
+    if (s == 0 && f == a.F - 1) {
+      float fg, fn;
+      filt_at(a, c, a.F, m, &fg, &fn);
+      a.filt_out[(c * 2) * a.M + m] = fg;
+      a.filt_out[(c * 2 + 1) * a.M + m] = fn;
+    }
+  } else {
+    a.tail_r_out[(c * kTail + s - kOut) * a.M + m] = yr;
+    a.tail_i_out[(c * kTail + s - kOut) * a.M + m] = yi;
   }
 }
 
 }  // namespace
 
-extern "C" int ohp_sbr_env_scan(
+extern "C" int ohp_sbr_env_map(
     const float* gain, const float* noise, const float* sine,
     const float* sine_bins, const int8_t* env_id, const int8_t* prev_id,
     const int8_t* last_env, const float* r, const float* carry_mask,
-    const float* nre, const float* nim, const float* sre, const float* sim,
-    const float* er, const float* ei, const float* filt,
-    const float* tail_r, const float* tail_i, float* out_r, float* out_i,
-    float* filt_out, float* tail_r_out, float* tail_i_out, int64_t C, int F,
-    int M, cudaStream_t stream) {
-  if (C > 0 && M > 0) {
-    const int tile = M < kTile ? M : kTile;
-    const dim3 block(tile, kSlots);
-    const dim3 grid((M + tile - 1) / tile, static_cast<unsigned>(C));
-    sbr_env_scan<<<grid, block, 0, stream>>>(
-        gain, noise, sine, sine_bins, env_id, prev_id, last_env, r,
-        carry_mask, nre, nim, sre, sim, er, ei, filt, tail_r, tail_i, out_r,
-        out_i, filt_out, tail_r_out, tail_i_out, F, M);
+    const int32_t* k_ord, const int32_t* noise_idx0, const int32_t* sine_ph0,
+    const float* no_noise, const float* noise_re, const float* noise_im,
+    const float* parity, float cal, const float* er, const float* ei,
+    const float* filt, const float* tail_r, const float* tail_i, float* out_r,
+    float* out_i, float* filt_out, float* tail_r_out, float* tail_i_out,
+    int64_t C, int F, int M, cudaStream_t stream) {
+  const int64_t total = C * F * kSlots * M;
+  if (total > 0 && total < (int64_t{1} << 31)) {
+    const Args a{gain,     noise,      sine,       sine_bins, env_id,
+                 prev_id,  last_env,   r,          carry_mask, k_ord,
+                 noise_idx0, sine_ph0, no_noise,   noise_re,  noise_im,
+                 parity,   cal,        er,         ei,        filt,
+                 tail_r,   tail_i,     out_r,      out_i,     filt_out,
+                 tail_r_out, tail_i_out, F,        M};
+    const unsigned blocks =
+        static_cast<unsigned>((total + kThreads - 1) / kThreads);
+    sbr_env_map<<<blocks, kThreads, 0, stream>>>(a, static_cast<int>(total));
   }
   return static_cast<int>(cudaGetLastError());
 }

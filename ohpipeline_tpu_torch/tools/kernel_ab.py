@@ -1,25 +1,32 @@
-"""The LPC and TNS kernels of this tree against other trees', on the card.
+"""This tree's CUDA kernels against other trees' versions of them, on the card.
 
     python -m ohpipeline_tpu_torch.tools.kernel_ab OTHER [OTHER ...]  # root
 
 Each OTHER is a directory holding another version's
 ``ohpipeline_tpu_torch/csrc`` (for example the parent commit's, unpacked
-with ``git archive``, or a patched copy of this tree's).  Its ``lpc.cu`` and
-``tns.cu`` are built with nvcc for sm_90a into ``OTHER/_ab/`` and loaded
-with ctypes; they must keep the C entry points ``ohp_lpc_synthesize`` and
-``ohp_tns_apply``.  A version is named by its directory; this tree's own
-kernels are the package's build (``_kernels.library()``), named ``this``.
+with ``git archive``, or a patched copy of this tree's).  Its ``lpc.cu``,
+``tns.cu``, ``sbr_env.cu`` and ``celt_comb.cu`` are built with nvcc for
+sm_90a into ``OTHER/_ab/`` and loaded with ctypes.  Each keeps its C entry
+point, and where the argument lists differ each tree is fed its own form: a ``sbr_env.cu`` with ``ohp_sbr_env_map``
+takes the compact arguments (noise and sine made in the kernel from the
+counters), one with ``ohp_sbr_env_scan`` the noise and sine planes made
+beforehand by ``codecs.aac.sbr.plane_args``.  A version is named by its
+directory; this tree's own kernels are the package's build
+(``_kernels.library()``), named ``this``.
 
 Shapes, as ``chip_smoke.py`` makes them: LPC on the 1152 x 4096 synthetic
 group (``lpc_case``), on the rows of the first FLAC serving group of the
 smoke content and on its first 4 rows alone; TNS on the first AAC-LC
 serving group's TnsPool planes, on the 1024-row worst case and on the
-group's row with the longest run alone.  A few rows alone time the chain of
-one row plus a launch: the chain floor.  Every version's output is held to
-this tree's (LPC bit for bit, TNS within 1e-5 of each row's peak); then the
-versions are timed in turns, each and then each again in reverse order,
-with ``chip_smoke.kernel_ms`` (REPS launches in one CUDA graph).  Prints one
-line per shape, the card's name and power limit, and one JSON line.  Needs a
+group's row with the longest run alone; the SBR frame scan on the first
+HE-AAC serving group and the worst cases at 24 and 40 bins; the CELT comb on
+the first CELT serving group, on the worst case and on the group's first row
+alone.  A few rows alone time the chain of one row plus a launch: the chain
+floor.  Every version's output is held to this tree's (LPC, SBR and CELT
+bit for bit, TNS within 1e-5 of each row's peak); then the versions are
+timed in turns, each and then each again in reverse order, with
+``chip_smoke.kernel_ms`` (REPS launches in one CUDA graph).  Prints one line
+per shape, the card's name and power limit, and one JSON line.  Needs a
 CUDA device.
 """
 
@@ -39,6 +46,19 @@ import torch
 
 from .. import _kernels
 
+#: The kernels compared, each built from OTHER's ``csrc/<name>.cu``.
+KERNELS = ("lpc", "tns", "sbr_env", "celt_comb")
+_p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+#: Every C entry point a tree's kernels may have, with its argument types.
+ENTRY = {
+    "ohp_lpc_synthesize": [_p] * 5 + [_i32, _i32, _p],
+    "ohp_tns_apply": [_p, _i64, _p, _p, _p, _p, _i64, _p],
+    "ohp_sbr_env_map": ([_p] * 16 + [ctypes.c_float] + [_p] * 10
+                        + [_i64, _i32, _i32, _p]),
+    "ohp_sbr_env_scan": [_p] * 23 + [_i64, _i32, _i32, _p],
+    "ohp_celt_comb": [_p] * 6 + [_i64, _i32, _i32, _p],
+}
+
 
 def _smoke():
     sys.path.insert(0, ".")
@@ -48,8 +68,8 @@ def _smoke():
 
 
 def build(sources: list, out: pathlib.Path) -> ctypes.CDLL:
-    """nvcc ``sources`` into the shared library ``out`` and bind its LPC
-    and TNS entry points."""
+    """nvcc ``sources`` into the shared library ``out`` and bind whichever
+    entry points of ``ENTRY`` it has."""
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.run([_kernels.find_nvcc(), *_kernels.NVCC_FLAGS,
                            "-shared", "-o", str(out),
@@ -62,11 +82,10 @@ def build(sources: list, out: pathlib.Path) -> ctypes.CDLL:
         if "registers" in line or "spill" in line:
             print(f"  ptxas {out.name}: {line.strip()}")
     lib = ctypes.CDLL(str(out))
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.ohp_lpc_synthesize.argtypes = [p, p, p, p, p, i32, i32, p]
-    lib.ohp_lpc_synthesize.restype = i32
-    lib.ohp_tns_apply.argtypes = [p, i64, p, p, p, p, i64, p]
-    lib.ohp_tns_apply.restype = i32
+    for name, argtypes in ENTRY.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, _i32
     return lib
 
 
@@ -74,25 +93,71 @@ def _stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _ok(rc: int, name: str) -> None:
+    if rc:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
 def lpc_call(lib, args):
     data, coeffs, shift, order = args
     out = torch.empty_like(data)
     B, N = data.shape
-    rc = lib.ohp_lpc_synthesize(data.data_ptr(), coeffs.data_ptr(),
-                                shift.data_ptr(), order.data_ptr(),
-                                out.data_ptr(), B, N, _stream())
-    if rc:
-        raise RuntimeError(f"lpc launch failed: CUDA error {rc}")
+    _ok(lib.ohp_lpc_synthesize(data.data_ptr(), coeffs.data_ptr(),
+                               shift.data_ptr(), order.data_ptr(),
+                               out.data_ptr(), B, N, _stream()), "lpc")
     return out
 
 
 def tns_call(lib, spec, tfi, tco, tdir, trow):
-    rc = lib.ohp_tns_apply(spec.data_ptr(), spec.shape[0], tfi.data_ptr(),
-                           tco.data_ptr(), tdir.data_ptr(), trow.data_ptr(),
-                           trow.shape[0], _stream())
-    if rc:
-        raise RuntimeError(f"tns launch failed: CUDA error {rc}")
+    _ok(lib.ohp_tns_apply(spec.data_ptr(), spec.shape[0], tfi.data_ptr(),
+                          tco.data_ptr(), tdir.data_ptr(), trow.data_ptr(),
+                          trow.shape[0], _stream()), "tns")
     return spec
+
+
+def sbr_launcher(lib, args):
+    """A function that launches ``lib``'s SBR frame scan on the compact
+    arguments ``args``, in the form that tree's kernel takes (the planes
+    made here, before any launch, for an ``ohp_sbr_env_scan`` tree), into
+    outputs allocated once; it returns them."""
+    from ..codecs.aac import sbr as sbrd
+
+    C, F, _, M = args[0].shape
+    out_r = torch.empty((C, F, 32, M), device=args[0].device)
+    outs = (out_r, torch.empty_like(out_r), torch.empty_like(args[-3]),
+            torch.empty_like(args[-2]), torch.empty_like(args[-1]))
+    if hasattr(lib, "ohp_sbr_env_map"):
+        ins = args
+        ptrs = [*(t.data_ptr() for t in args[:16]), ctypes.c_float(args[16]),
+                *(t.data_ptr() for t in (*args[17:], *outs))]
+        fn = lib.ohp_sbr_env_map
+    else:
+        ins = sbrd.plane_args(*args)
+        ptrs = [t.data_ptr() for t in (*ins, *outs)]
+        fn = lib.ohp_sbr_env_scan
+
+    def run(ins=ins):           # holds the tensors behind the pointers
+        _ok(fn(*ptrs, C, F, M, _stream()), "sbr_env")
+        return outs
+
+    return run
+
+
+def celt_launcher(lib, y, Tv, gt, win2):
+    """A function that launches ``lib``'s comb on the rows ``y`` into
+    outputs allocated once; it returns them."""
+    R, S, F = y.shape[0], Tv.shape[0], Tv.shape[1]
+    out = torch.empty((R, F * _kernels.CELT_N), device=y.device)
+    hist = torch.empty((R, _kernels.CELT_HLEN), device=y.device)
+
+    def run():
+        _ok(lib.ohp_celt_comb(y.data_ptr(), Tv.data_ptr(), gt.data_ptr(),
+                              win2.data_ptr(), out.data_ptr(),
+                              hist.data_ptr(), R, R // S, F, _stream()),
+            "celt_comb")
+        return out, hist
+
+    return run
 
 
 def flac_group_rows(cs, dev) -> list:
@@ -156,20 +221,30 @@ def main() -> None:
     libs = {"this": _kernels.library()}
     for other in a.other:
         src = other / "ohpipeline_tpu_torch" / "csrc"
-        libs[other.name] = build([src / "lpc.cu", src / "tns.cu"],
+        libs[other.name] = build([src / f"{k}.cu" for k in KERNELS],
                                  other / "_ab" / "libab.so")
 
-    def timed(fns: dict, agrees) -> dict:
+    failed = []
+
+    def timed(shape, fns: dict, agrees) -> dict:
         """Hold every other version to this tree's, then time in turns:
-        each version, then each again in reverse order."""
+        each version, then each again in reverse order.  A version that
+        disagrees is timed all the same and the run fails at its end."""
         for name in fns:
             torch.cuda.synchronize()
             if name != "this" and not agrees(name):
-                raise AssertionError(f"{shape}: {name} != this tree's")
+                failed.append(f"{shape}: {name} != this tree's")
+                print(failed[-1])
         ms = {name: [] for name in fns}
         for name in [*fns, *reversed(fns)]:
             ms[name].append(cs.kernel_ms(fns[name], a.reps))
         return ms
+
+    def same(runs):
+        """Each version's outputs bit for bit against this tree's."""
+        want = [t.clone() for t in runs["this"]()]
+        return lambda name: all(torch.equal(g, w) for g, w in
+                                zip(runs[name](), want))
 
     result = {}
     group = flac_group_rows(cs, dev)
@@ -179,12 +254,9 @@ def main() -> None:
                   "lpc serving group 0, first 4 rows (chain floor)":
                   [t[:4] for t in group]}
     for shape, args in lpc_shapes.items():
-        want = lpc_call(libs["this"], args)
-        result[shape] = timed(
-            {k: (lambda lib=libs[k], args=args: lpc_call(lib, args))
-             for k in libs},
-            lambda name, args=args, want=want: torch.equal(
-                lpc_call(libs[name], args), want))
+        runs = {k: (lambda lib=lib, args=args: [lpc_call(lib, args)])
+                for k, lib in libs.items()}
+        result[shape] = timed(shape, runs, same(runs))
     pool0 = aac_group_pool(cs)
     tns_shapes = {"tns serving group 0": pool0,
                   "tns worst case": cs.tns_worst_case(),
@@ -203,15 +275,43 @@ def main() -> None:
 
         work = spec.clone()  # filtered in place, over and over
         result[shape] = timed(
-            {k: (lambda lib=libs[k], work=work, pool=pool:
-                 tns_call(lib, work, *pool)) for k in libs},
+            shape, {k: (lambda lib=libs[k], work=work, pool=pool:
+                        tns_call(lib, work, *pool)) for k in libs},
             close)
+    from ..codecs.aac import sbr as sbrd
+    from ..codecs.aac.serving import decode_he_streams_device
+
+    _, seen = cs.first_calls(sbrd, ["envelope_scan"], lambda: (
+        decode_he_streams_device(cs.he_streams(), cs.HE_FRAMES_PER_GROUP,
+                                 device="cuda")))
+    he0 = seen["envelope_scan"][0]
+    sbr_shapes = {"sbr_env serving HE group 0": he0,
+                  "sbr_env worst case": cs.sbr_env_case(dev, M=24),
+                  "sbr_env worst case, 40 bins": cs.sbr_env_case(dev, M=40)}
+    for shape, args in sbr_shapes.items():
+        runs = {k: sbr_launcher(lib, args) for k, lib in libs.items()}
+        result[shape] = timed(shape, runs, same(runs))
+    from ..codecs.opus import celt as pc
+
+    _, seen = cs.first_calls(pc, ["comb"], lambda: (
+        pc.decode_celt_streams_device(cs.celt_streams(), cs.CELT_GROUP)))
+    y, Tv, gt, win2 = seen["comb"][0]
+    celt_shapes = {"celt_comb serving group 0": (y, Tv, gt),
+                   "celt_comb worst case": cs.celt_comb_worst_case(dev),
+                   "celt_comb serving group 0, first row alone (chain "
+                   "floor)": (y[:1].contiguous(), Tv[:1], gt[:1])}
+    for shape, (y_, Tv_, gt_) in celt_shapes.items():
+        runs = {k: celt_launcher(lib, y_, Tv_, gt_, win2)
+                for k, lib in libs.items()}
+        result[shape] = timed(shape, runs, same(runs))
     for shape, ms in result.items():
         cells = "  ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms"
                           for k, v in ms.items())
         print(f"{shape}: {cells}")
     print(card)
     print(json.dumps({"card": card, "reps": a.reps, "ms": result}))
+    if failed:
+        sys.exit("kernel_ab: " + "; ".join(failed))
 
 
 if __name__ == "__main__":

@@ -21,9 +21,12 @@ Tolerances, and why:
   - the group output within 2e-5 of each channel's peak (the QMF
     synthesis sums the bands, which averages the patch errors down), the
     carried state within 5e-4 (the 6-slot tail holds patched slots).
-The ``gpu`` tests hold the ``csrc/sbr_env.cu`` kernel to the plain version
-on the card (1e-5 of each channel's peak; the kernel repeats the plain
-version's float operations, so it is expected to be exact)."""
+The kernel ``csrc/sbr_env.cu`` runs the scan as a map over (channel, frame,
+slot, bin): ``sbr_map_model`` is its float32 model (filt by selection,
+carried slots recomputed from the previous frame), held bit for bit to
+``envelope_scan_torch`` here; the ``gpu`` tests hold the kernel bit for bit
+to its plain version (``noise_sine_planes``, then ``envelope_scan_torch``)
+on the card."""
 
 import pathlib
 
@@ -31,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ohpipeline_tpu_torch import _kernels
 from ohpipeline_tpu_torch._host import aac_sbr as SBR
 from ohpipeline_tpu_torch._host import aac_bitstream, sbr_native
@@ -143,30 +147,11 @@ def _port_args_to_jax(args, c):
             tuple(jnp.asarray(x) for x in (filt, tr, ti)))
 
 
-def worst_case(C=3, F=6, M=24, seed=8):
-    """Scan arguments with every slot active, prev_id drawn from the
-    frame's envelopes and the carry (MAXE), carry_mask on the first 8
-    slots (6 carried, 2 zeroed), smoothing ratios in [0, 1), sine bins,
-    sine and noise levels all on; CPU tensors."""
-    rng = np.random.default_rng(seed)
-
-    def f32(*shape, scale=1.0):
-        return torch.from_numpy((rng.standard_normal(shape) * scale)
-                                .astype(np.float32))
-
-    def i8(lo, hi, *shape):
-        return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int8))
-
-    levels = [f32(C, F, 8, M).abs() for _ in range(3)]
-    bins = torch.from_numpy((rng.random((C, F, 8, M)) < 0.3)
-                            .astype(np.float32))
-    r = torch.from_numpy(rng.random((C, F, 38)).astype(np.float32))
-    cmask = torch.zeros((C, F, 38))
-    cmask[:, :, :8] = 1.0
-    planes = [f32(C, F, 38, M, scale=300.0) for _ in range(6)]
-    return [*levels, bins, i8(0, 8, C, F, 38), i8(0, 9, C, F, 38),
-            i8(-1, 8, C, F), r, cmask, *planes, f32(C, 2, M).abs(),
-            f32(C, 6, M, scale=300.0), f32(C, 6, M, scale=300.0)]
+def worst_case(C=3, F=6, M=24):
+    """chip_smoke.py's worst case (every slot active, prev_id drawn from the
+    frame's envelopes and the carry, carried slots, sine and noise on) in
+    the plane form envelope_scan_torch takes; CPU tensors."""
+    return sbrd.plane_args(*chip_smoke.sbr_env_case("cpu", C=C, F=F, M=M))
 
 
 def _jax_scan(f, xs, init):
@@ -221,6 +206,7 @@ def test_envelope_inputs_match_jax_scan_inputs(real, monkeypatch):
     args, _, _ = sbrd.envelope_inputs(
         runner.static, pcm, sbrd.cond_to_device(cond, "cpu"),
         sbrd.state_to_device([state] * NCH, "cpu"))
+    args = sbrd.plane_args(*args)
     names = ("gain", "noise", "sine", "sine_bins", "env_id", "prev_id",
              "last_env", "r", "carry_mask", "nre", "nim", "sre", "sim", "er",
              "ei")
@@ -287,20 +273,226 @@ def test_synthesize_slots_matches_jax():
         assert _peak_err(syn_t, np.asarray(syn)[None]) <= 2e-5
 
 
+
+def _real_compact(real, g):
+    """The compact scan arguments of real group g (from the initial
+    state: the scan's own carries are what the cases vary)."""
+    (groups, runner) = real
+    pcm, cond = groups[g]
+    state = sbrd.device_init_state(runner.static.M)
+    args, _, _ = sbrd.envelope_inputs(
+        runner.static, pcm, sbrd.cond_to_device(cond, "cpu"),
+        sbrd.state_to_device([state] * NCH, "cpu"))
+    return args
+
+
+@pytest.mark.parametrize("g", range(3))
+def test_noise_sine_planes_match_jax(real, monkeypatch, g):
+    """The noise and sine planes regenerated from the counter seeds equal
+    the planes the JAX program feeds its scan, bit for bit."""
+    (groups, runner) = real
+    pcm, cond = groups[g]
+    state = sbrd.device_init_state(runner.static.M)
+    args = _real_compact(real, g)
+    sine_bins, env_id, counters = args[3], args[4], args[9:17]
+    got = sbrd.noise_sine_planes(env_id, sine_bins, *counters)
+    for c in range(NCH):
+        _f, init, xs, _res = _jax_scan_capture(
+            runner.static, pcm[c].numpy(), {k: v[c] for k, v in cond.items()},
+            state, monkeypatch)
+        want = _jax_xs_to_port(xs, init)[9:13]
+        for name, g_, w in zip(("nre", "nim", "sre", "sim"), got, want):
+            assert torch.equal(g_[c:c + 1], w), name
+
+
+def sbr_map_model(gain, noise, sine, sine_bins, env_id, prev_id, last_env, r,
+                  carry_mask, nre, nim, sre, sim, er, ei, filt, tail_r,
+                  tail_i):
+    """float32 model of csrc/sbr_env.cu's decomposition of the frame scan
+    (arguments and results of envelope_scan_torch), every frame at once:
+    the filt each frame starts from is selected, not carried (the gain and
+    noise of the last envelope of the latest earlier frame that has one, by
+    a cummax over frame numbers, or the input filt); every slot is adjusted
+    once with its carried input zeroed, which gives each frame's slots
+    32-37 as they are; then the carried slots s < 6 of frame f take frame f
+    - 1's slot 32 + s (the input tail at frame 0), and every slot is
+    adjusted again from its true input."""
+    C, F, _, M = gain.shape
+    ch = torch.arange(C)[:, None]
+
+    def selected(src):
+        """(C, K) frame numbers (-1 = none) -> the filt they leave, (C, K,
+        2, M)."""
+        at = src.clamp_min(0)
+        le = last_env.long()[ch, at].clamp_min(0)
+        rows = torch.stack([gain[ch, at, le], noise[ch, at, le]], 2)
+        return torch.where((src >= 0)[..., None, None], rows,
+                           filt[:, None])
+
+    seen = torch.where(last_env >= 0, torch.arange(F), -1).cummax(1).values
+    fsel = selected(torch.cat([torch.full((C, 1), -1), seen[:, :-1]], 1))
+
+    def gather(planes, idx):
+        rows = torch.gather(planes, 2, idx.clamp_min(0)[..., None]
+                            .expand(-1, -1, -1, M))
+        return torch.where((idx >= 0)[..., None], rows, 0.0)
+
+    e, p = env_id.long(), prev_id.long()
+    Gprev = gather(torch.cat([gain, fsel[:, :, :1]], 2), p)
+    Nprev = gather(torch.cat([noise, fsel[:, :, 1:]], 2), p)
+    rf = r[..., None]
+    g_sl = rf * Gprev + (1 - rf) * gather(gain, e)
+    n_sl = rf * Nprev + (1 - rf) * gather(noise, e)
+    s_sl, sine_mask = gather(sine, e), gather(sine_bins, e)
+    act = (e >= 0)[..., None]
+    cm = carry_mask[..., None] > 0
+
+    def adjust(x_r, x_i):
+        o_r = x_r * g_sl + nre * n_sl * (1 - sine_mask) + sre * s_sl
+        o_i = x_i * g_sl + nim * n_sl * (1 - sine_mask) + sim * s_sl
+        return torch.where(act, o_r, x_r), torch.where(act, o_i, x_i)
+
+    y0r, y0i = adjust(torch.where(cm, 0.0, er), torch.where(cm, 0.0, ei))
+    pad = er.new_zeros((C, F, sbrd.NSL - tail_r.shape[1], M))
+    tr = torch.cat([tail_r[:, None], y0r[:, :-1, sbrd.NOUT:]], 1)
+    ti = torch.cat([tail_i[:, None], y0i[:, :-1, sbrd.NOUT:]], 1)
+    yr, yi = adjust(torch.where(cm, torch.cat([tr, pad], 2), er),
+                    torch.where(cm, torch.cat([ti, pad], 2), ei))
+    filt_out = selected(seen[:, -1:])[:, 0]
+    return (yr[:, :, :sbrd.NOUT], yi[:, :, :sbrd.NOUT], filt_out,
+            yr[:, -1, sbrd.NOUT:], yi[:, -1, sbrd.NOUT:])
+
+
+MAP_CASES = ["real0", "real1", "real2", "worst", "wide", "stale_filt",
+             "carry_high"]
+
+
+def _map_case(real, case):
+    """Compact scan arguments: a real group of dryrun_he.aac, or one of
+    chip_smoke.py's seeded cases (the worst case at 24 and 40 bins, a
+    carried filt from far back, carried and inactive slots everywhere) at
+    a few channels and frames."""
+    if case.startswith("real"):
+        return _real_compact(real, int(case[4:]))
+    kind = {"wide": "worst"}.get(case, case)
+    return chip_smoke.sbr_env_case("cpu", kind, C=3, F=48,
+                                      M=40 if case == "wide" else 24)
+
+
+@pytest.mark.parametrize("case", MAP_CASES)
+def test_sbr_map_model_equals_scan(real, case):
+    """The kernel's decomposition (a map with depth one) is the frame scan,
+    bit for bit, in all five outputs."""
+    args = sbrd.plane_args(*_map_case(real, case))
+    want = sbrd.envelope_scan_torch(*args)
+    got = sbr_map_model(*args)
+    for name, g, w in zip(SCAN_OUT, got, want):
+        assert g.shape == w.shape and torch.equal(g, w), name
+
+
+def test_sbr_cases_reach_what_they_name(real):
+    """stale_filt smooths against a filt left many frames back (or the
+    input's, in channel 0); carry_high carries into slots >= 32 and leaves
+    slots inactive, some of them carried."""
+    (gain, _, _, _, env_id, prev_id, last_env, _, cm, *_rest) = \
+        _map_case(real, "stale_filt")
+    assert bool((last_env[0] < 0).all())
+    seen = torch.where(last_env >= 0, torch.arange(last_env.shape[1]), -1)
+    gap = torch.arange(last_env.shape[1]) - seen.cummax(1).values
+    assert int(gap.max()) >= 10 and float((prev_id == 8).float().mean()) > .7
+    (_, _, _, _, env_id, _, _, _, cm, *_rest) = _map_case(real, "carry_high")
+    assert bool((cm[..., 32:] > 0).any())
+    assert bool(((env_id < 0) & (cm > 0)).any())
+
+
 def test_envelope_scan_needs_a_kernel_off_the_cpu():
+    args = chip_smoke.sbr_env_case("cpu", C=1, F=1)
     meta = [torch.empty(a.shape, dtype=a.dtype, device="meta")
-            for a in worst_case(C=1, F=1)]
+            if isinstance(a, torch.Tensor) else a for a in args]
     with pytest.raises(ValueError, match="no kernel"):
         sbrd.envelope_scan(*meta)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
-        _kernels.sbr_env(*worst_case(C=1, F=1))
+        _kernels.sbr_env(*args)
+
+
+def test_envelope_scan_on_cpu_is_planes_then_scan():
+    args = chip_smoke.sbr_env_case("cpu", C=2, F=5)
+    got = sbrd.envelope_scan(*args)
+    want = sbrd.envelope_scan_torch(*sbrd.plane_args(*args))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _bytes_read(args, got):
+    """Bytes the map kernel moves, counted by walking its threads one
+    (channel, frame, slot) at a time as csrc/sbr_env.cu does (every bin of a
+    slot reads the same rows)."""
+    (gain, _, _, _, env_id, prev_id, last_env, _, cmask, *_rest) = \
+        [a.numpy() if isinstance(a, torch.Tensor) else a for a in args]
+    C, F, _, M = gain.shape
+    gn, ss, er, act = set(), set(), set(), set()
+
+    def filt_at(c, f):
+        for k in range(f - 1, -1, -1):
+            if last_env[c, k] >= 0:
+                gn.add((c, k, last_env[c, k]))
+                return
+
+    def adjust(c, f, s):
+        e, p = env_id[c, f, s], prev_id[c, f, s]
+        if e < 0:
+            return
+        act.add((c, f, s))
+        if p >= 8:
+            filt_at(c, f)
+        elif p >= 0:
+            gn.add((c, f, p))
+        gn.add((c, f, e))
+        ss.add((c, f, e))
+
+    for c in range(C):
+        for f in range(F):
+            for s in range(38):
+                if s >= 32 and f < F - 1:
+                    continue
+                if cmask[c, f, s] <= 0:
+                    er.add((c, f, s))
+                elif 0 < f and s < 6 and cmask[c, f - 1, 32 + s] <= 0:
+                    er.add((c, f - 1, 32 + s))
+                if cmask[c, f, s] > 0 and 0 < f and s < 6:
+                    adjust(c, f - 1, 32 + s)
+                adjust(c, f, s)
+        filt_at(c, F)
+    per_ch = (*args[10:12], *args[13:16])   # counters, tables, parity
+    return (8 * M * (len(gn) + len(ss) + len(er)) + 4 * len(ss)
+            + 9 * len(act) + chip_smoke.nbytes(*args[4:5], *args[6:7],
+                                               *args[8:9], *args[19:], *got,
+                                               *per_ch))
+
+
+@pytest.mark.parametrize("case", ["real0", "worst", "stale_filt",
+                                  "carry_high"])
+def test_sbr_env_bound_counts_what_the_kernel_reads(real, case):
+    """chip_smoke.sbr_env_bytes, the bytes behind sbr_env's bound, is the
+    count of what the kernel's threads read and write on this data; on a
+    real group it is below the whole inputs' bytes (envelope rows 5-7 are
+    never used: at most 5 envelopes a frame)."""
+    args = _map_case(real, case)
+    if case != "real0":
+        args = chip_smoke.sbr_env_case("cpu", case, C=2, F=12)
+    got = sbrd.envelope_scan(*args)
+    n = chip_smoke.sbr_env_bytes(args, got)
+    assert n == _bytes_read(args, got)
+    whole = chip_smoke.nbytes(*(a for a in args if isinstance(a, torch.Tensor)),
+                              *got)
+    assert n < whole if case == "real0" else n <= whole
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("which", ["real", "worst", "wide"])
+@pytest.mark.parametrize("which", ["real", "worst", "wide", "stale_filt",
+                                   "carry_high"])
 def test_sbr_env_kernel_matches_plain_on_card(which, cuda):
-    """"wide" has 40 bins: two bin tiles of the kernel, the second with
-    dead lanes."""
+    """Bit for bit against noise_sine_planes, then envelope_scan_torch, at
+    the serving shape (C 32, F 48); "wide" has 40 bins."""
     if which == "real":
         (groups, runner) = _real_groups(1)
         pcm, cond = groups[0]
@@ -309,12 +501,13 @@ def test_sbr_env_kernel_matches_plain_on_card(which, cuda):
             runner.static, pcm.to(cuda), sbrd.cond_to_device(cond, cuda),
             sbrd.state_to_device([state] * NCH, cuda))
     else:
-        M = 24 if which == "worst" else 40
-        args = [a.to(cuda) for a in worst_case(C=32, F=48, M=M)]
+        kind = {"wide": "worst"}.get(which, which)
+        args = chip_smoke.sbr_env_case(cuda, kind,
+                                          M=40 if which == "wide" else 24)
     _kernels.reset_launches()
     got = sbrd.envelope_scan(*args)
     assert _kernels.launches["sbr_env"] == 1
-    want = sbrd.envelope_scan_torch(*args)
+    want = sbrd.envelope_scan_torch(*sbrd.plane_args(*args))
     for name, g, w in zip(SCAN_OUT, got, want):
         assert g.device.type == "cuda"
-        assert _peak_err(g.cpu(), w.cpu()) <= 1e-5, name
+        assert torch.equal(g, w), name

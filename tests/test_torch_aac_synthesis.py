@@ -9,8 +9,10 @@ wires (atol 0.05 without TNS, 0.5 with it) and to the float64 reference
 (rms <= 0.25, max <= 1 LSB).  Content: ``tests/assets/dryrun.aac`` (89
 ADTS frames, 44.1 kHz stereo, with short windows, TNS, escapes, PNS and
 M/S) and a seeded synthetic TNS pool.  The ``gpu`` tests hold the TNS kernel
-to its plain version on the card, and to the float64 reference on filters at
-the encoder's limits."""
+on the card to the float64 reference and to its plain version, unless the
+plain version is the further of the two from float64 (chip_smoke.py's
+``tns_gate``: on filters at the encoder's limits the plain version drifts
+past 1e-5 of the row's peak)."""
 
 import pathlib
 
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ohpipeline_tpu_torch import _kernels
 from ohpipeline_tpu_torch._host import aac_native
 from ohpipeline_tpu_torch.codecs.aac import synthesis as SYN
@@ -250,18 +253,27 @@ def _tns_edges(seed=21):
 
 
 def _tns_long_near_unit(seed=22):
-    """1024-bin runs of order 12, up and down, whose first reflection
-    coefficients sit at the quantiser's ends (+0.995, -0.996).  (Filters
-    with every tap at the encoder's limits are `_tns_encoder_limits`: there
-    tns_scan_torch itself drifts more than 1e-5 of the peak from the
-    float64 reference, so they are held against that.)"""
+    """1024-bin runs of order 12, up and down, whose 12 quantised
+    reflection coefficients all sit at the encoder's limits: the first at
+    the quantiser's ends (7, -8: +0.995, -0.996), the rest at magnitudes 4,
+    then 2.  Two of the four (7 then signs alternating; all negative) keep
+    phi's row sums under the kernel's gate (2.0, 1.7) and are cut into
+    chunks, two (7 then all negative; -8, -4 then signs alternating: 9.5,
+    16.2) are walked whole.  Held to the float64 reference (tns_gate).
+    (Two sign patterns go further: all positive, or -8 then signs
+    alternating from +4, put phi's row sums near 300, and there every
+    float32 walk, the plain version's and the kernel's, is 3-5e-5 of the
+    row's peak from float64.)"""
     rng = np.random.default_rng(seed)
     tfi, tco, tdir, trow, TB = _pool(4)
     tfi[:] = 1
     tdir[1::2, 0] = 1
-    for j, qc in enumerate(([7, -8, 4, -4, 2, -2, 1, -1, 1, -1, 1, -1],) * 2
-                           + ([7, -8] + [0] * 9 + [1],
-                              [-8, -8] + [0] * 9 + [1])):
+    lim = np.minimum(7, 8 >> np.minimum(np.arange(12), 2))
+    alt = (-1) ** np.arange(12)
+    for j, sign in enumerate((alt, -1, np.r_[1, -np.ones(11)],
+                              np.r_[-1, -1, alt[2:]])):
+        qc = sign * lim
+        qc[0] = 7 if qc[0] > 0 else -8
         tco[j, 0] = _encoder_coeffs(rng, qc=qc)
     spec = (rng.standard_normal((TB, 1024)) * 3000).astype(np.float32)
     return spec, tfi, tco, tdir, trow
@@ -271,27 +283,18 @@ def _tns_all_slots_padded(seed=23):
     """chip_smoke.py's worst case (all 24 slots, order 12, both directions),
     its pooled rows interleaved with padding (trow -1) and with rows out of
     range (trow >= TB)."""
-    spec, tfi, tco, tdir, trow = _chip_smoke().tns_worst_case(P=48, seed=seed)
+    spec, tfi, tco, tdir, trow = chip_smoke.tns_worst_case(P=48, seed=seed)
     trow = trow.copy()
     trow[1::4], trow[3::8] = -1, 48 + 5
     return spec, tfi, tco, tdir, trow
 
-
-def _chip_smoke():
-    import importlib.util
-
-    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 TNS_STRESS = {
     "edges": _tns_edges,
     "long_near_unit": _tns_long_near_unit,
     "all_slots_padded": _tns_all_slots_padded,
-    "worst_case": lambda: _chip_smoke().tns_worst_case(P=128),
+    "worst_case": lambda: chip_smoke.tns_worst_case(P=128),
     "dryrun": _dryrun_pool,
 }
 
@@ -406,23 +409,27 @@ def tns_kernel_model(spec, tfi, tco, tdir, trow, long=128, C=32, gate=4.0):
     return out
 
 
+def _tns_gate(got, plain, arrays):
+    """The TNS gate of chip_smoke.py on the pool ``arrays`` (the float64
+    reference of ``tns_f64``; ``_nearer_than_plain``)."""
+    ref, inside = chip_smoke.tns_f64(*arrays)
+    _nearer_than_plain(got, plain, ref, inside[inside >= 0])
+
+
 @pytest.mark.parametrize("case,long", [(c, 128) for c in TNS_STRESS]
                          + [("worst_case", 40), ("long_near_unit", 40),
                             ("dryrun", 40)])
 def test_tns_kernel_model_matches_plain(case, long):
     """The kernel's decomposition (every run on its own, both directions at
     once; runs over ``long`` bins cut into chunks with their states passed
-    along) stays within 1e-5 of each row's peak of tns_scan_torch, and of
-    the float64 reference where that takes the planes (its slot bytes stop
-    at 24).  ``long`` 40 cuts most of the worst case's runs too."""
+    along) passes the TNS gate against the float64 reference and
+    tns_scan_torch (``_tns_gate``).  ``long`` 40 cuts most of the worst
+    case's runs too."""
     spec, tfi, tco, tdir, trow = TNS_STRESS[case]()
     want = SYN.tns_scan_torch(*_t(spec.copy(), tfi, tco, tdir, trow))
     got = tns_kernel_model(spec, tfi, tco, tdir, trow, long=long)
+    _tns_gate(got, want.numpy(), (spec, tfi, tco, tdir, trow))
     inside = np.where(trow < spec.shape[0], trow, -1)
-    _tns_close(got, want.numpy().astype(np.float64), inside)
-    if tfi.max() <= 24:
-        _tns_close(got, SYN.apply_tns_zz_reference(
-            spec.astype(np.float64), tfi, tco, tdir, inside), inside)
     live = inside[inside >= 0]
     np.testing.assert_array_equal(np.delete(got, live, 0),
                                   np.delete(spec, live, 0))
@@ -440,19 +447,12 @@ def test_tns_long_runs_fall_on_both_sides_of_the_gate():
 
 
 def _tns_encoder_limits(seed):
-    """1024-bin runs of order 12, up and down, whose 12 quantised
-    reflection coefficients all sit at the encoder's limits (magnitudes 7,
-    4, then 2 as they shrink with the tap; signs drawn from the seed): the
-    filters of the largest gain an encoder emits."""
-    lim = np.minimum(7, 8 >> np.minimum(np.arange(12), 2))
-    rng = np.random.default_rng(seed)
-    tfi, tco, tdir, trow, TB = _pool(4)
-    tfi[:] = 1
-    tdir[1::2, 0] = 1
-    for j in range(4):
-        tco[j, 0] = _encoder_coeffs(rng, qc=rng.choice([-1, 1], 12) * lim)
-    spec = (rng.standard_normal((TB, 1024)) * 3000).astype(np.float32)
-    return spec, tfi, tco, tdir, trow
+    """chip_smoke.py's encoder-limit pool (``tns_encoder_limits``): 4
+    1024-bin runs of order 12, up and down, whose 12 quantised reflection
+    coefficients all sit at the encoder's limits (magnitudes 7, 4, then 2
+    as they shrink with the tap; signs drawn from the seed): the filters of
+    the largest gain an encoder emits."""
+    return chip_smoke.tns_encoder_limits(seed)
 
 
 TNS_LIMIT_SEEDS = range(100, 106)
@@ -467,12 +467,10 @@ def _row_errs(got, ref, rows):
 def _nearer_than_plain(got, plain, ref, rows):
     """got is within 1e-5 of each row's peak of the float64 reference ref,
     and wherever it is more than 1e-5 from the plain version, the plain
-    version is the further of the two from ref."""
-    err = _row_errs(got, ref, rows)
-    assert (err <= 1e-5).all(), err
-    apart = _row_errs(got, plain.astype(np.float64), rows) > 1e-5
-    plain_err = _row_errs(plain, ref, rows)
-    assert (plain_err > err)[apart].all(), (err, plain_err, apart)
+    version is the further of the two from ref (chip_smoke.py's
+    ``tns_gate``)."""
+    k_err, p_err, bad = chip_smoke.tns_gate(got, plain, ref, rows)
+    assert not bad, (bad, k_err, p_err)
 
 
 @pytest.mark.parametrize("seed", TNS_LIMIT_SEEDS)
@@ -507,6 +505,73 @@ def test_tns_gate_keeps_encoder_limit_runs_in_bound():
                                   trow).max())
         worst[gate] = max(errs)
     assert worst[np.inf] > 1e-5 >= worst[4.0], worst
+
+
+def test_jax_tns_scan_drift_at_encoder_limits():
+    """How far the JAX package's _tns_scan_device drifts from the float64
+    reference on the encoder-limit filters (seeds 100-105): within 1e-5 of
+    each row's peak (6.05e-6 measured, seed 100, where tns_scan_torch
+    drifts 1.12e-5).  Through the long IMDCT the spectra's differences stay
+    inside the 0.5 PCM gate between the port and JAX
+    (test_decode_chunk_zz_matches_jax_and_f64): JAX against float64, and
+    tns_scan_torch and the kernel's model against JAX (0.159, 0.415 and
+    0.207 measured)."""
+    import jax.numpy as jnp
+    J = _jsyn()
+    imdct = SYN._imdct_matrix(2048).astype(np.float64)
+    rel, pcm = [], {"jax_f64": [], "plain_jax": [], "model_jax": []}
+    for seed in TNS_LIMIT_SEEDS:
+        spec, tfi, tco, tdir, trow = _tns_encoder_limits(seed)
+        ref = SYN.apply_tns_zz_reference(spec.astype(np.float64), tfi, tco,
+                                         tdir, trow)
+        jx = np.asarray(J.apply_tns_zz(*(jnp.asarray(a) for a in (
+            spec, tfi, tco, tdir, trow)))).astype(np.float64)
+        plain = SYN.tns_scan_torch(*_t(spec.copy(), tfi, tco, tdir, trow)) \
+            .numpy().astype(np.float64)
+        model = tns_kernel_model(spec, tfi, tco, tdir, trow) \
+            .astype(np.float64)
+        rel.append(_row_errs(jx, ref, trow).max())
+        for key, d in (("jax_f64", jx - ref), ("plain_jax", plain - jx),
+                       ("model_jax", model - jx)):
+            pcm[key].append(np.abs(d @ imdct).max())
+    assert max(rel) <= 1e-5, rel
+    assert all(max(v) <= 0.5 for v in pcm.values()), pcm
+
+
+def _tns_past_float32(seed=22):
+    """1024-bin runs of order 12, up and down, with the two sign patterns
+    of _tns_long_near_unit's limits that no float32 walk follows: every
+    reflection coefficient positive (7, 4, then 2), and -8 then signs
+    alternating from +4."""
+    rng = np.random.default_rng(seed)
+    tfi, tco, tdir, trow, TB = _pool(4)
+    tfi[:] = 1
+    tdir[1::2, 0] = 1
+    lim = np.minimum(7, 8 >> np.minimum(np.arange(12), 2))
+    alt = np.r_[-1, (-1) ** np.arange(11)]
+    for j, sign in enumerate((1, 1, alt, alt)):
+        qc = sign * lim
+        qc[0] = 7 if qc[0] > 0 else -8
+        tco[j, 0] = _encoder_coeffs(rng, qc=qc)
+    spec = (rng.standard_normal((TB, 1024)) * 3000).astype(np.float32)
+    return spec, tfi, tco, tdir, trow
+
+
+def test_tns_float32_walks_leave_the_gate_past_float32():
+    """The open question of the TNS gate, kept in view: on the sign patterns
+    _tns_past_float32 makes, tns_scan_torch and the kernel's model both
+    drift 1e-5 to 1e-4 of each row's peak from the float64 reference
+    (2.6-5.1e-5 and 3.6-4.4e-5 measured), past the gate's 1e-5, so the gate
+    would fail such content if an encoder emitted it."""
+    spec, tfi, tco, tdir, trow = _tns_past_float32()
+    ref = SYN.apply_tns_zz_reference(spec.astype(np.float64), tfi, tco,
+                                     tdir, trow)
+    plain = SYN.tns_scan_torch(*_t(spec.copy(), tfi, tco, tdir,
+                                   trow)).numpy()
+    model = tns_kernel_model(spec, tfi, tco, tdir, trow)
+    for got in (plain, model):
+        errs = _row_errs(got, ref, trow)
+        assert ((errs > 1e-5) & (errs < 1e-4)).all(), errs
 
 
 def test_tns_edge_case_runs():
@@ -677,9 +742,9 @@ def test_tns_kernel_matches_plain_on_card_stress(case, cuda):
     torch.cuda.synchronize()
     assert _kernels.launches["tns"] == before + 1
     want = SYN.tns_scan_torch(args[0].clone(), *args[1:])
+    _tns_gate(got.cpu().numpy(), want.cpu().numpy(),
+              (spec, tfi, tco, tdir, trow))
     inside = np.where(trow < spec.shape[0], trow, -1)
-    _tns_close(got.cpu().numpy(), want.cpu().numpy().astype(np.float64),
-               inside)
     live = inside[inside >= 0]
     np.testing.assert_array_equal(np.delete(got.cpu().numpy(), live, 0),
                                   np.delete(spec, live, 0))

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ohpipeline_tpu_torch import _host, _kernels
 from ohpipeline_tpu_torch.codecs.opus import celt as PC
 
@@ -215,11 +216,17 @@ def test_comb_dispatch_takes_the_plain_version_on_cpu(monkeypatch):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+
 @pytest.mark.gpu
-def test_comb_kernel_equals_plain_on_card(cuda):
-    y, Tv, gt = _comb_case(S=8, F=12)
+@pytest.mark.parametrize("case", ["mixed", "warp_edges"])
+def test_comb_kernel_equals_plain_on_card(cuda, case):
+    """"warp_edges": lags 33-35 and 66-67, runs either side of one and two
+    warp widths (chip_smoke.py's celt_comb_lag_case)."""
     win2 = PC.device_static(cuda).win2
-    args = [torch.from_numpy(a).to(cuda) for a in (y, Tv, gt)]
+    if case == "mixed":
+        args = [torch.from_numpy(a).to(cuda) for a in _comb_case(S=8, F=12)]
+    else:
+        args = chip_smoke.celt_comb_lag_case(cuda, S=8, F=12)
     before = _kernels.launches["celt_comb"]
     out, hist = PC.comb(*args, win2)
     want_out, want_hist = PC.comb_torch(*args, win2)

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ohpipeline_tpu_torch import _kernels
 from ohpipeline_tpu_torch.ops import lpc
 
@@ -281,21 +282,11 @@ def test_lane_model_matches_plain(case, G):
 def test_lane_model_matches_plain_on_lpc_case():
     """chip_smoke.py's synthetic group (orders 0-32, shifts 0-31, 5% worst
     rows), cut to 64 rows x 300 samples."""
-    data, coeffs, shift, order = (a[:64] for a in _chip_smoke().lpc_case())
+    data, coeffs, shift, order = (a[:64] for a in chip_smoke.lpc_case())
     data = np.ascontiguousarray(data[:, :300])
     np.testing.assert_array_equal(lane_model(data, coeffs, shift, order, 32),
                                   _port(data, coeffs, shift, order))
 
-
-def _chip_smoke():
-    import importlib.util
-    import pathlib
-
-    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 @pytest.mark.gpu
