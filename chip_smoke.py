@@ -16,7 +16,11 @@ Phases, each ending in torch.cuda.synchronize():
      first serving group (captured from the group pass, as phase 3 takes
      its planes; almost all order 8); both timed with CUDA events;
   3. rice kernel against its plain version, bit-exact, on the parser's wire
-     planes of the first serving group; both timed;
+     planes of the first serving group and on a worst case (rice_worst_case:
+     every rice k 0-30 with quotients 0-16, codewords past the 32-bit
+     window, verbatim widths 0-32, every start phase, walks past the slab's
+     last word, a negative cursor, counts 0, 1, 63 and 64); all timed; then
+     the group pass on the card against the CPU's;
   4. the serving path decode_flac_streams_device(device="cuda") over all 18
      streams, bit-exact against the encoder input, with both kernels'
      launch counts taken from that run alone;
@@ -175,6 +179,16 @@ def encode_job(job: tuple) -> tuple:
     return track, encode_flac(track, rate, bits)
 
 
+def flac_content() -> tuple:
+    """Phase 0's content: the (seed, seconds, rate, bits) jobs and their
+    (track, FLAC bytes), encoded in a spawned process pool."""
+    jobs = ([(s, CD_SECONDS, 44100, 16) for s in CD_SEEDS]
+            + [(s, HIRES_SECONDS, 96000, 24) for s in HIRES_SEEDS])
+    with mp.get_context("spawn").Pool(min(len(jobs), os.cpu_count() or 1)) \
+            as pool:
+        return jobs, pool.map(encode_job, jobs)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of fn() over reps launches, after one warm-up."""
     import torch
@@ -316,6 +330,106 @@ def check_lpc(name, args):
           f"{order.max()} rows of order {order.argmax()}; blocks on the "
           f"8-lane path {narrow:.3f}; kernel {ms:.4f} ms, plain "
           f"{plain_ms:.2f} ms, bound {b[0] * 1e3:.2f} us ({b[1]})")
+    return err, ms, plain_ms, b
+
+
+def pack_fields(nbits: int, start, value, length) -> np.ndarray:
+    """(ceil(nbits / 32),) int32 big-endian words (u32 bit patterns) holding
+    each bit field: ``length[i]`` <= 64 bits of ``value[i]`` < 2^32, most
+    significant first, at bit ``start[i]``; fields do not overlap, bits
+    outside them are 0."""
+    nw = -(-nbits // 32)
+    start = np.asarray(start, np.int64)
+    value = np.asarray(value, np.uint64)
+    length = np.asarray(length, np.int64)
+    acc = np.zeros(nw + 3, np.float64)      # disjoint fields: sums are exact
+    for j in range(3):                      # a field spans at most 3 words
+        w = (start >> 5) + j
+        d = start + length - 32 * (w + 1)   # the word's last bit in the field
+        part = np.where(d >= 0,
+                        value >> np.clip(d, 0, 63).astype(np.uint64),
+                        value << np.clip(-d, 0, 63).astype(np.uint64))
+        part = np.where((d > -32) & (length > 0), part & 0xFFFFFFFF, 0)
+        acc += np.bincount(w, weights=part.astype(np.float64),
+                           minlength=nw + 3)
+    return acc[:nw].astype(np.uint32).view(np.int32)
+
+
+RICE_WORST_UNITS = 16384
+
+
+def rice_worst_case(seed=0, U=RICE_WORST_UNITS) -> tuple:
+    """Inputs of the rice-unit decode (words, cur, kk, mode, counts), numpy
+    int32, reaching every corner of the reference's arithmetic, including
+    inputs the host parser never emits.  Every fourth unit is verbatim, at
+    widths 0-32 in turn; the others are rice at k 0-30 in turn, step i of
+    the r-th rice unit coding quotient (i + r) mod 17 with random low bits
+    (quotient 16: sixteen zeros, so the window's top half is empty), so
+    codewords run up to 47 bits, past the 32-bit window.  Unit u starts at
+    bit phase u mod 32 behind random filler bits.  Counts are 64, with 0, 1,
+    63 and 2-62 scattered.  The slab ends inside the codewords of the last
+    units, so their walks run past its last word; of those, one starts past
+    the slab's end and one at a negative cursor."""
+    rng = np.random.default_rng(seed)
+    u = np.arange(U)
+    raw = u % 4 == 3
+    kk = np.where(raw, (np.cumsum(raw) - 1) % 33,
+                  (np.cumsum(~raw) - 1) % 31).astype(np.int64)
+    pick = rng.random(U)
+    counts = np.select([pick < 0.04, pick < 0.08, pick < 0.12, pick < 0.2],
+                       [0, 1, 63, rng.integers(2, 63, U)], 64)
+    counts[-6:] = 64
+    step = np.arange(64)[None, :]
+    q = np.where(raw[:, None], 0, (step + np.cumsum(~raw)[:, None] - 1) % 17)
+    kc = kk[:, None]
+    field = rng.integers(0, np.left_shift(1, kc), (U, 64))
+    value = np.where(raw[:, None], field, np.left_shift(1, kc) | field)
+    length = np.where(raw[:, None], kc, q + 1 + kc)
+    length = np.where(step < counts[:, None], length, 0)
+    ends = np.cumsum(length, axis=1)
+    cur = np.zeros(U, np.int64)
+    fill = np.zeros(U, np.int64)
+    pos = 0
+    for i, total in enumerate(ends[:, -1].tolist()):
+        fill[i] = (i - pos) % 32            # filler bits up to phase i mod 32
+        cur[i] = pos + fill[i]
+        pos = int(cur[i]) + total
+    start = np.concatenate([(cur[:, None] + ends - length).reshape(-1),
+                            cur - fill])
+    value = np.concatenate([value.reshape(-1),
+                            rng.integers(0, np.left_shift(1, fill))])
+    length = np.concatenate([length.reshape(-1), fill])
+    nbits = int(cur[U - 4] + ends[U - 4, -1] // 2)   # inside unit U - 4
+    keep = start < nbits
+    words = pack_fields(nbits, start[keep], value[keep], length[keep])
+    cur[U - 2] = 32 * len(words) + 77
+    cur[U - 1] = -45
+    return (words, cur.astype(np.int32), kk.astype(np.int32),
+            raw.astype(np.int32), counts.astype(np.int32))
+
+
+def check_rice(name, lanes):
+    """Rice kernel against the plain version on the card, bit for bit;
+    returns (max |err|, kernel ms, plain ms, (bound ms, bound by))."""
+    import torch
+    from ohpipeline_tpu_torch.codecs.flac import rice
+
+    got = rice.scan_units(*lanes)
+    want = rice.scan_units_torch(*lanes)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"rice kernel != plain on {name} (max |err| "
+                             f"{err})")
+    ms = kernel_ms(lambda: rice.scan_units(*lanes), 20)
+    plain_ms = cuda_ms(lambda: rice.scan_units_torch(*lanes), 3)
+    # per decoded sample ~10 integer operations (leading-zero count,
+    # shifts, masks, the zigzag fold), counted at the float32 rate
+    b = bound(nbytes(*lanes, got), 10 * int(lanes[4].long().sum()))
+    print(f"phase 3: rice {name}: {lanes[1].shape[0]} units over "
+          f"{lanes[0].shape[0] * 4} slab bytes bit-exact; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+          f"{b[0] * 1e3:.2f} us ({b[1]})")
     return err, ms, plain_ms, b
 
 
@@ -791,11 +905,7 @@ def main() -> None:
 
     # --- phase 0: content, encoded in spawned workers ----------------------
     t0 = time.perf_counter()
-    jobs = ([(s, CD_SECONDS, 44100, 16) for s in CD_SEEDS]
-            + [(s, HIRES_SECONDS, 96000, 24) for s in HIRES_SEEDS])
-    with mp.get_context("spawn").Pool(min(len(jobs), os.cpu_count() or 1)) \
-            as pool:
-        encoded = pool.map(encode_job, jobs)
+    jobs, encoded = flac_content()
     tracks = [t for t, _ in encoded]
     streams = [b for _, b in encoded]
     audio_s = sum(t.shape[1] / rate for t, (_, _, rate, _) in
@@ -845,23 +955,13 @@ def main() -> None:
     lpc_err = max(lpc_err, check_lpc("serving group 0",
                                      lpc_group_inputs(t))[0])
 
-    # --- phase 3: rice kernel vs plain on real wire planes -----------------
+    # --- phase 3: rice kernel vs plain on real wire planes and the worst
+    # case --------------------------------------------------------------------
     lanes = rice.unit_lanes(*(t[k] for k in flac.RICE_PLANES[:7]))
-    got = rice.scan_units(*lanes)
-    want = rice.scan_units_torch(*lanes)
-    torch.cuda.synchronize()
-    rice_err = int((got.long() - want.long()).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError(f"rice kernel != plain (max |err| {rice_err})")
-    rice_ms = kernel_ms(lambda: rice.scan_units(*lanes), 20)
-    rice_plain_ms = cuda_ms(lambda: rice.scan_units_torch(*lanes), 3)
-    # per decoded sample ~10 integer operations (leading-zero count,
-    # shifts, masks, the zigzag fold), counted at the float32 rate
-    rice_bound = bound(nbytes(*lanes, got), 10 * int(lanes[4].long().sum()))
-    print(f"phase 3: rice {lanes[1].shape[0]} units over "
-          f"{lanes[0].shape[0] * 4} slab bytes bit-exact; kernel "
-          f"{rice_ms:.4f} ms, plain {rice_plain_ms:.2f} ms, bound "
-          f"{rice_bound[0] * 1e3:.2f} us ({rice_bound[1]})")
+    rice_err, rice_ms, rice_plain_ms, rice_bound = check_rice(
+        "serving group 0", lanes)
+    worst = [torch.from_numpy(a).to(dev) for a in rice_worst_case()]
+    rice_err = max(rice_err, check_rice("worst case", worst)[0])
     # the whole group pass on the card against the CPU's plain pass
     group = flac.synthesise_group_rice(*(t[k] for k in flac.RICE_PLANES), 2)
     torch.cuda.synchronize()

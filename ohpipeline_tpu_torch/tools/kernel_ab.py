@@ -5,8 +5,8 @@
 Each OTHER is a directory holding another version's
 ``ohpipeline_tpu_torch/csrc`` (for example the parent commit's, unpacked
 with ``git archive``, or a patched copy of this tree's).  Its ``lpc.cu``,
-``tns.cu``, ``sbr_env.cu`` and ``celt_comb.cu`` are built with nvcc for
-sm_90a into ``OTHER/_ab/`` and loaded with ctypes.  Each keeps its C entry
+``rice.cu``, ``tns.cu``, ``sbr_env.cu`` and ``celt_comb.cu`` are built with
+nvcc for sm_90a into ``OTHER/_ab/`` and loaded with ctypes.  Each keeps its C entry
 point, and where the argument lists differ each tree is fed its own form: a ``sbr_env.cu`` with ``ohp_sbr_env_map``
 takes the compact arguments (noise and sine made in the kernel from the
 counters), one with ``ohp_sbr_env_scan`` the noise and sine planes made
@@ -16,14 +16,16 @@ directory; this tree's own kernels are the package's build
 
 Shapes, as ``chip_smoke.py`` makes them: LPC on the 1152 x 4096 synthetic
 group (``lpc_case``), on the rows of the first FLAC serving group of the
-smoke content and on its first 4 rows alone; TNS on the first AAC-LC
+smoke content and on its first 4 rows alone; the rice decode on that
+group's units, on ``rice_worst_case`` and on the group's first 32 units
+alone (one warp); TNS on the first AAC-LC
 serving group's TnsPool planes, on the 1024-row worst case and on the
 group's row with the longest run alone; the SBR frame scan on the first
 HE-AAC serving group and the worst cases at 24 and 40 bins; the CELT comb on
 the first CELT serving group, on the worst case and on the group's first row
 alone.  A few rows alone time the chain of one row plus a launch: the chain
-floor.  Every version's output is held to this tree's (LPC, SBR and CELT
-bit for bit, TNS within 1e-5 of each row's peak); then the versions are
+floor.  Every version's output is held to this tree's (LPC, rice, SBR and
+CELT bit for bit, TNS within 1e-5 of each row's peak); then the versions are
 timed in turns, each and then each again in reverse order, with
 ``chip_smoke.kernel_ms`` (REPS launches in one CUDA graph).  Prints one line
 per shape, the card's name and power limit, and one JSON line.  Needs a
@@ -35,8 +37,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import multiprocessing as mp
-import os
 import pathlib
 import subprocess
 import sys
@@ -45,26 +45,21 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from . import smoke
 
 #: The kernels compared, each built from OTHER's ``csrc/<name>.cu``.
-KERNELS = ("lpc", "tns", "sbr_env", "celt_comb")
+KERNELS = ("lpc", "rice", "tns", "sbr_env", "celt_comb")
 _p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: Every C entry point a tree's kernels may have, with its argument types.
 ENTRY = {
     "ohp_lpc_synthesize": [_p] * 5 + [_i32, _i32, _p],
+    "ohp_rice_decode_units": [_p, _i64, _p, _p, _p, _p, _p, _i64, _p],
     "ohp_tns_apply": [_p, _i64, _p, _p, _p, _p, _i64, _p],
     "ohp_sbr_env_map": ([_p] * 16 + [ctypes.c_float] + [_p] * 10
                         + [_i64, _i32, _i32, _p]),
     "ohp_sbr_env_scan": [_p] * 23 + [_i64, _i32, _i32, _p],
     "ohp_celt_comb": [_p] * 6 + [_i64, _i32, _i32, _p],
 }
-
-
-def _smoke():
-    sys.path.insert(0, ".")
-    import chip_smoke
-
-    return chip_smoke
 
 
 def build(sources: list, out: pathlib.Path) -> ctypes.CDLL:
@@ -106,6 +101,22 @@ def lpc_call(lib, args):
                                shift.data_ptr(), order.data_ptr(),
                                out.data_ptr(), B, N, _stream()), "lpc")
     return out
+
+
+def rice_launcher(lib, words, cur, kk, mode, counts):
+    """A function that launches ``lib``'s rice decode of the units into an
+    output allocated once; it returns [out]."""
+    U = cur.shape[0]
+    out = torch.empty((U, 64), dtype=torch.int32, device=words.device)
+
+    def run():
+        _ok(lib.ohp_rice_decode_units(
+            words.data_ptr(), words.shape[0], cur.data_ptr(), kk.data_ptr(),
+            mode.data_ptr(), counts.data_ptr(), out.data_ptr(), U,
+            _stream()), "rice")
+        return [out]
+
+    return run
 
 
 def tns_call(lib, spec, tfi, tco, tdir, trow):
@@ -160,19 +171,16 @@ def celt_launcher(lib, y, Tv, gt, win2):
     return run
 
 
-def flac_group_rows(cs, dev) -> list:
-    """The LPC arguments of the first FLAC serving group of chip_smoke.py's
-    content (its 18 streams, encoded in spawned workers)."""
+def flac_group_planes(cs, dev) -> dict:
+    """The wire planes, on ``dev``, of the first FLAC serving group of
+    chip_smoke.py's content (its 18 streams, encoded in spawned workers)."""
     from ..codecs import flac
     from ..codecs.flac.serving import iter_groups
 
-    jobs = ([(s, cs.CD_SECONDS, 44100, 16) for s in cs.CD_SEEDS]
-            + [(s, cs.HIRES_SECONDS, 96000, 24) for s in cs.HIRES_SEEDS])
-    with mp.get_context("spawn").Pool(min(len(jobs), os.cpu_count() or 1)) \
-            as pool:
-        streams = [b for _, b in pool.map(cs.encode_job, jobs)]
-    planes, _ = next(iter_groups(streams, cs.FRAMES_PER_GROUP))
-    return cs.lpc_group_inputs(flac.to_device(planes, dev))
+    _, encoded = cs.flac_content()
+    planes, _ = next(iter_groups([b for _, b in encoded],
+                                 cs.FRAMES_PER_GROUP))
+    return flac.to_device(planes, dev)
 
 
 def aac_group_pool(cs) -> tuple:
@@ -213,7 +221,7 @@ def main() -> None:
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: no CUDA device")
-    cs = _smoke()
+    cs = smoke()
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -246,8 +254,12 @@ def main() -> None:
         return lambda name: all(torch.equal(g, w) for g, w in
                                 zip(runs[name](), want))
 
+    from ..codecs import flac
+    from ..codecs.flac import rice
+
     result = {}
-    group = flac_group_rows(cs, dev)
+    t = flac_group_planes(cs, dev)
+    group = cs.lpc_group_inputs(t)
     lpc_shapes = {"lpc synthetic 1152x4096":
                   [torch.from_numpy(x).to(dev) for x in cs.lpc_case()],
                   "lpc serving group 0": group,
@@ -256,6 +268,15 @@ def main() -> None:
     for shape, args in lpc_shapes.items():
         runs = {k: (lambda lib=lib, args=args: [lpc_call(lib, args)])
                 for k, lib in libs.items()}
+        result[shape] = timed(shape, runs, same(runs))
+    lanes = rice.unit_lanes(*(t[k] for k in flac.RICE_PLANES[:7]))
+    rice_shapes = {"rice serving group 0": lanes,
+                   "rice worst case": [torch.from_numpy(a).to(dev)
+                                       for a in cs.rice_worst_case()],
+                   "rice serving group 0, first 32 units (chain floor)":
+                   [lanes[0], *(x[:32] for x in lanes[1:])]}
+    for shape, args in rice_shapes.items():
+        runs = {k: rice_launcher(lib, *args) for k, lib in libs.items()}
         result[shape] = timed(shape, runs, same(runs))
     pool0 = aac_group_pool(cs)
     tns_shapes = {"tns serving group 0": pool0,

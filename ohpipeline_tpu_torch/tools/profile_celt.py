@@ -36,13 +36,7 @@ import torch
 
 from .. import _kernels
 from ..codecs.opus import celt as pc
-
-
-def _smoke():
-    sys.path.insert(0, ".")
-    import chip_smoke
-
-    return chip_smoke
+from . import smoke, trace_call
 
 
 def comb_runs(Tv: np.ndarray, gt: np.ndarray) -> np.ndarray:
@@ -64,12 +58,12 @@ def comb_runs(Tv: np.ndarray, gt: np.ndarray) -> np.ndarray:
 
 def comb_scaling(dev) -> list:
     """celt_comb on the worst-case rows at 16, 66 and 132 streams."""
-    smoke = _smoke()
+    cs = smoke()
     win2 = pc.device_static(dev).win2
     out = []
     for S in (16, 66, 132):
-        y, Tv, gt = smoke.celt_comb_worst_case(dev, S=S)
-        ms = smoke.cuda_ms(lambda: _kernels.celt_comb(y, Tv, gt, win2), 20)
+        y, Tv, gt = cs.celt_comb_worst_case(dev, S=S)
+        ms = cs.cuda_ms(lambda: _kernels.celt_comb(y, Tv, gt, win2), 20)
         runs = int(comb_runs(Tv.cpu().numpy(), gt.cpu().numpy()).max())
         out.append({"rows": 2 * S, "ms": ms, "max_runs_per_row": runs,
                     "ns_per_run": ms * 1e6 / runs})
@@ -133,31 +127,14 @@ def staged(streams: list, group: int, dev) -> dict:
 def traced(streams: list, group: int) -> dict:
     """One warm call under torch.profiler: device time by kernel, busy
     union and idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pc.decode_celt_streams_device(streams, group)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA)
-    busy, end = 0.0, -1.0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    prof, _, info = trace_call(
+        lambda: pc.decode_celt_streams_device(streams, group))
     by_kernel = sorted(
         ((k.key, k.count, getattr(k, "self_device_time_total", 0.0) / 1e3)
          for k in prof.key_averages()
          if getattr(k, "self_device_time_total", 0.0) > 0),
         key=lambda r: -r[2])
-    return {"wall_s": wall, "device_busy_ms": busy / 1e3,
-            "device_events": len(spans),
-            "idle_share": 1.0 - busy / 1e6 / wall,
+    return {**info,
             "top_kernels_ms": [[k, c, ms] for k, c, ms in by_kernel[:10]]}
 
 
@@ -168,7 +145,7 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda")
-    streams = _smoke().celt_streams()
+    streams = smoke().celt_streams()
     group = 32
     out = pc.decode_celt_streams_device(streams, group)      # warm-up
     torch.cuda.synchronize()
