@@ -72,7 +72,33 @@ Phases, each ending in torch.cuda.synchronize():
      more times, paged again with the port's build_pages.  The first 4
      streams are held to the same call on the CPU (<= 1 LSB), stream 0 to
      the host celt.py decode (<= 2 LSB, >= 70 dB), and the celt_comb launch
-     count is taken from a warm call alone.
+     count is taken from a warm call alone;
+ 12. build the MP3 and Vorbis content in a spawned process pool (the port's
+     encoder copies): bench_secondary.py's 16 MP3 streams (8 s each), 4
+     MPEG-1 and 4 MPEG-2 LSF streams whose frames cycle through long,
+     start, short and stop blocks, and 16 Vorbis streams; then the MP3
+     polyphase window kernel against its plain version on the card (<= 1
+     LSB; the count of samples that differ is printed) on the first MP3
+     serving group's V history (captured from phase 13's first call) and
+     on a worst case (broadband V saturating both clip ends, a partial
+     group's zero padding, an odd channel count) at 16 and 24 bits; all
+     timed, with the conv1d formulation of the same FIR as the library
+     time;
+ 13. the MP3 serving path decode_mp3_streams_device(device="cuda") at the
+     width of the JAX package's MP3 serving cell (16 stereo streams, 32
+     frames per group).  The first 4 streams and the block-type and LSF
+     streams are held to the same call on the CPU (<= 1 LSB); stream 0 and
+     the first block-type and LSF streams to a float64 numpy run of the
+     scan form of the filterbank fed the same prepare_granules spectra
+     (<= 6 LSB, >= 80 dB); the mp3_window launch count is taken from a warm
+     call alone;
+ 14. the Vorbis serving path decode_vorbis_streams_device(device="cuda") at
+     the width of the JAX package's Vorbis serving cell (16 stereo streams,
+     bs 256/1024, 64 blocks a group): streams 0-7 bench_secondary.py's
+     all-long content, 8-15 tests/test_vorbis_device.py's mixed blocks, 8 s
+     each.  The first 4 streams are held to the same call on the CPU (<= 1
+     LSB), streams 0 and 8 to the host synthesis (imdct_many and Lapper,
+     float64; <= 2 LSB, >= 60 dB).
 
 A kernel's time is the mean of 20 launches captured in one CUDA graph
 (kernel_ms: a launch from Python takes longer on the host than a short
@@ -81,8 +107,10 @@ CUDA events (cuda_ms).  Each kernel's record carries its bound: the larger
 of the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
 tensor cores), the published peaks of an H100 SXM at 700 W, from this run's
-inputs.  No single PyTorch call computes any of these recurrences, so
-library_ms is null.
+inputs.  No single PyTorch call computes the first five kernels'
+recurrences, so their library_ms is null; the MP3 window pass's is the time
+of one grouped conv1d (cuDNN, TF32 off) plus the pair-add, the one PyTorch
+formulation of its FIR.
 
 Float32 matrix products must run in full float32 (no TF32), which is
 PyTorch's default; the script checks that the default holds before and
@@ -125,6 +153,15 @@ CELT_STREAMS = 16                     # the JAX package's CELT serving width
 CELT_REPEATS = 3
 CELT_GROUP = 32
 CELT_CPU_STREAMS = 4
+MP3_STREAMS = 16                      # the JAX package's MP3 serving width
+MP3_SECONDS = 8.0
+MP3_FRAMES_PER_GROUP = 32
+MP3_CPU_STREAMS = 4
+MP3_BLOCK_FRAMES = 70                 # frames of each block-type stream
+VORBIS_STREAMS = 16                   # the JAX package's Vorbis width
+VORBIS_SECONDS = 8.0
+VORBIS_GROUP = 64
+VORBIS_CPU_STREAMS = 4
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM, 700 W
 FP32_OPS_PER_S = 67e12
 
@@ -746,6 +783,251 @@ def check_celt_comb(name, args, win2):
     return err, ms, plain_ms, b_ms, b_by
 
 
+def mp3_bench_stream(i: int, seconds: float = MP3_SECONDS) -> bytes:
+    """bench_secondary.py's MP3 content (mp3_16stream_device): stereo
+    MPEG-1 frames at 44.1 kHz, 25% of the lines set to 1-11, global gain
+    174-184, from seed 300 + i, built with the port's encoder copy."""
+    from ohpipeline_tpu_torch._host import mp3_encoder
+
+    rng = np.random.default_rng(300 + i)
+    frames = []
+    for _ in range(int(seconds * 44100 / 1152)):
+        spec = np.zeros((2, 576), np.int32)
+        m = rng.random((2, 576)) < 0.25
+        spec[m] = rng.integers(1, 12, m.sum())
+        frames.append(mp3_encoder.build_frame(
+            [spec[0], spec[1]], global_gain=int(rng.integers(174, 184))))
+    return b"".join(frames)
+
+
+#: block types of the frames of mp3_block_stream, in turn: long, start,
+#: three short, stop (the order an encoder switches in)
+MP3_BLOCK_CYCLE = (0, 0, 1, 2, 2, 2, 3)
+
+
+def mp3_block_stream(seed: int, nframes: int, lsf: bool = False) -> bytes:
+    """Stereo frames cycling through MP3_BLOCK_CYCLE, each with its own
+    spectra (22% of the lines at 1-11, random signs) and global gain 172-
+    185: MPEG-1 at 44.1 kHz and 320 kbps, or with ``lsf`` MPEG-2 at 22.05
+    kHz and 160 kbps (one granule a frame)."""
+    from ohpipeline_tpu_torch._host import mp3_encoder
+
+    rng = np.random.default_rng(seed)
+    kw = (dict(version=2, sample_rate=22050, bitrate=160) if lsf else {})
+    frames = []
+    for f in range(nframes):
+        spec = np.zeros((2, 576), np.int32)
+        m = rng.random((2, 576)) < 0.22
+        spec[m] = rng.integers(1, 12, m.sum())
+        spec[rng.random((2, 576)) < 0.5] *= -1
+        frames.append(mp3_encoder.build_frame(
+            [spec[0], spec[1]], global_gain=int(rng.integers(172, 186)),
+            block_type=MP3_BLOCK_CYCLE[f % len(MP3_BLOCK_CYCLE)], **kw))
+    return b"".join(frames)
+
+
+def vorbis_stream(i: int, mode: str, seconds: float = VORBIS_SECONDS,
+                  ch: int = 2, coupling: bool = True) -> bytes:
+    """Ogg Vorbis content built with the port's StreamSpec copy, bs
+    256/1024 at 44.1 kHz.  ``bench``: bench_secondary.py's
+    vorbis_16stream_device content (seed 100 + i, all long blocks, 30% of
+    the residues at -2..2, floor posts (140, 120)); ``mixed`` / ``long`` /
+    ``short``: tests/test_vorbis_device.py's blocks (seed i, 70% long
+    blocks for ``mixed``, random floor posts)."""
+    from ohpipeline_tpu_torch._host import vorbis_encoder
+
+    seed = 100 + i if mode == "bench" else i
+    rng = np.random.default_rng(seed)
+    spec = vorbis_encoder.StreamSpec(channels=ch, sample_rate=44100, bs0=256,
+                                     bs1=1024, coupling=coupling)
+    blocks, n = [], 0
+    while n < seconds * 44100:
+        if mode == "bench":
+            lng, fy = 1, [(140, 120)] * ch
+        else:
+            lng = {"long": 1, "short": 0}.get(mode,
+                                              int(rng.random() < 0.7))
+        half = 512 if lng else 128
+        r = np.zeros((ch, half), np.int64)
+        m = rng.random((ch, half)) < 0.3
+        r[m] = rng.integers(-2, 3, m.sum())
+        if mode != "bench":
+            fy = [(int(rng.integers(100, 200)), int(rng.integers(80, 200)))
+                  for _ in range(ch)]
+        blocks.append((lng, fy, r))
+        n += half
+    return spec.build(blocks)
+
+
+def codec_job(job: tuple) -> bytes:
+    """One stream of codec_content's jobs; runs in a pool worker."""
+    kind, *args = job
+    return {"mp3": mp3_bench_stream, "mp3_blocks": mp3_block_stream,
+            "vorbis": vorbis_stream}[kind](*args)
+
+
+def codec_content() -> dict:
+    """The MP3 and Vorbis content of phases 12-14, built in a spawned
+    process pool: ``mp3`` (the bench's 16 streams), ``mp3_blocks`` (4
+    MPEG-1 streams through every block type), ``mp3_lsf`` (4 MPEG-2 LSF
+    streams, the same cycle), ``vorbis`` (8 bench streams, then 8 with
+    mixed blocks)."""
+    half = VORBIS_STREAMS // 2
+    jobs = {"mp3": [("mp3", i) for i in range(MP3_STREAMS)],
+            "mp3_blocks": [("mp3_blocks", 40 + s, MP3_BLOCK_FRAMES)
+                           for s in range(MP3_CPU_STREAMS)],
+            "mp3_lsf": [("mp3_blocks", 50 + s, MP3_BLOCK_FRAMES, True)
+                        for s in range(MP3_CPU_STREAMS)],
+            "vorbis": [("vorbis", i, "bench") for i in range(half)]
+            + [("vorbis", i, "mixed") for i in range(half)]}
+    flat = [j for js in jobs.values() for j in js]
+    with mp.get_context("spawn").Pool(min(len(flat), os.cpu_count() or 1)) \
+            as pool:
+        made = iter(pool.map(codec_job, flat))
+    return {k: [next(made) for _ in js] for k, js in jobs.items()}
+
+
+def mp3_scan_f64(xr_t: np.ndarray, bt_t: np.ndarray) -> np.ndarray:
+    """The scan form of the MP3 hybrid filterbank (``hybrid_synthesis``:
+    a granule loop carrying the IMDCT overlap, an 18-step loop carrying
+    the 16 x 64 V-FIFO) in float64 numpy from a zero state, over (Tg, C,
+    576) spectra and (Tg, C, 32) block types -> (C, Tg * 576) float PCM
+    in [-1, 1) units."""
+    from ohpipeline_tpu_torch._host import mp3_prep
+
+    ops = mp3_prep._imdct_operators()
+    poly = mp3_prep._polyphase_matrix()
+    wnd = mp3_prep._window_matrix().astype(np.float64)
+    Tg, C = xr_t.shape[:2]
+    ov = np.zeros((C, 32, 18))
+    vf = np.zeros((C, 16, 64))
+    out = np.zeros((C, Tg, 18, 32))
+    for g in range(Tg):
+        bands = xr_t[g].reshape(C, 32, 18).astype(np.float64)
+        x36 = np.einsum("csk,cskn->csn", bands, ops[bt_t[g]])
+        t = x36[..., :18] + ov
+        ov = x36[..., 18:]
+        t[:, 1::2, 1::2] *= -1.0                # frequency inversion
+        V = t.transpose(0, 2, 1) @ poly         # (C, 18, 64)
+        for s in range(18):
+            vf = np.concatenate([V[:, s:s + 1], vf[:, :-1]], axis=1)
+            U = np.stack([vf[:, 0::2, :32], vf[:, 1::2, 32:]],
+                         axis=2).reshape(C, 16, 32)
+            out[:, g, s] = (U * wnd).sum(axis=1)
+    return out.reshape(C, Tg * 576)
+
+
+def mp3_host_reference(data: bytes) -> np.ndarray:
+    """A whole MP3 stream's (C, n) int16-range PCM from mp3_scan_f64 fed
+    the prepare_granules spectra of its frames (parsed in order by one
+    Mp3Stream, as the serving call parses each stream)."""
+    from ohpipeline_tpu_torch._host import mp3_bitstream, mp3_prep
+
+    hdr = mp3_bitstream.parse_frame_header(data)
+    st, frames = mp3_bitstream.Mp3Stream(data), []
+    while (fr := st.next_frame()) is not None:
+        frames.append(fr)
+    xr, bt = mp3_prep.prepare_granules(frames, hdr.channels)
+    pcm = mp3_scan_f64(xr, bt) * 32768.0
+    return np.clip(np.rint(pcm), -32768, 32767)
+
+
+def snr_db(ref, got) -> float:
+    """10 log10 of the reference's power over the error's."""
+    ref = np.asarray(ref, np.float64)
+    err = np.asarray(got, np.float64) - ref
+    return float(10 * np.log10((ref ** 2).mean()
+                               / max((err ** 2).mean(), 1e-30)))
+
+
+def mp3_window_case(dev, Tg=64, B=33, n_real=40, seed=12):
+    """Window-pass input vfull (15 + 18 Tg, B, 64) float32 on ``dev``:
+    broadband V (the 15 history rows and the real slots) at magnitudes
+    whose sums saturate both clip ends on ~15% of the samples, zero past
+    the n_real real granules (a partial group's padding); B odd, so the
+    last channel tile is half full."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((15 + 18 * Tg, B, 64))
+    v *= np.exp(rng.uniform(np.log(0.02), np.log(3.0), (1, B, 1)))
+    v[15 + 18 * n_real:] = 0.0
+    return torch.from_numpy(v.astype(np.float32)).to(dev)
+
+
+def mp3_window_library(vfull, wnd):
+    """The window pass's FIR as PyTorch's own calls (no rounding or
+    layout): one ``conv1d`` over time with groups=64, one 16-tap filter
+    per V lane (lane i < 32 takes wnd[2m][i] at tap 15 - 2m, lane 32 + i
+    wnd[2m + 1][i] at tap 14 - 2m), then the pair-add of lanes i and 32 +
+    i.  Returns a function of no arguments that computes it on vfull's
+    lanes laid out as (B, 64, 15 + T) and returns (B, 32, T) float32."""
+    import torch
+
+    w = torch.zeros((64, 1, 16), device=vfull.device)
+    for m in range(8):
+        w[:32, 0, 15 - 2 * m] = wnd[2 * m]
+        w[32:, 0, 14 - 2 * m] = wnd[2 * m + 1]
+    x = vfull.permute(1, 2, 0).contiguous()                 # (B, 64, 15 + T)
+
+    def run():
+        y = torch.nn.functional.conv1d(x, w, groups=64)     # (B, 64, T)
+        return y[:, :32] + y[:, 32:]
+
+    return run
+
+
+def check_mp3_window(name, vfull, wnd, bit_depth: int,
+                     library: bool = False):
+    """mp3_window kernel against mp3_window_torch on the card, <= 1 LSB;
+    with ``library`` also times the conv1d formulation
+    (mp3_window_library) and holds its rounded result to the plain
+    version's to 1 LSB (at 16 bits: at 24 bits its other summation order
+    parts from it by float32's rounding, ~10 LSB).  Returns (max |err| in
+    LSB, kernel ms, plain ms, bound ms, bound by, library ms or None)."""
+    import torch
+    from ohpipeline_tpu_torch import _kernels
+    from ohpipeline_tpu_torch.codecs.mp3 import synthesis as msyn
+
+    got = _kernels.mp3_window(vfull, wnd, bit_depth)
+    want = msyn.mp3_window_torch(vfull, wnd, bit_depth)
+    torch.cuda.synchronize()
+    diff = (got.long() - want.long()).abs()
+    err, n_diff = int(diff.max()), int((diff > 0).sum())
+    if err > 1:
+        raise AssertionError(f"mp3_window kernel vs plain on {name}: {err} "
+                             f"LSB ({n_diff} samples differ)")
+    ms = kernel_ms(lambda: _kernels.mp3_window(vfull, wnd, bit_depth), 20)
+    plain_ms = cuda_ms(lambda: msyn.mp3_window_torch(vfull, wnd, bit_depth),
+                       5)
+    Tg, B = got.shape[:2]
+    lim = float(1 << (bit_depth - 1))
+    lib_ms, lib_note = None, ""
+    if library:
+        lib = mp3_window_library(vfull, wnd)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            y = lib()
+            lib_ms = cuda_ms(lib, 20)
+        y = (y.permute(2, 0, 1).reshape(Tg, 18, B, 32).transpose(1, 2)
+             .reshape(Tg, B, 576))
+        lib_err = int((torch.round(y * lim).clamp(-lim, lim - 1).long()
+                       - want.long()).abs().max())
+        if lib_err > 1:
+            raise AssertionError(f"conv1d formulation vs plain on {name}: "
+                                 f"{lib_err} LSB")
+        lib_note = f", conv1d {lib_ms:.4f} ms (<= {lib_err} LSB)"
+    # 16 multiplies and 16 adds a sample
+    b_ms, b_by = bound(nbytes(vfull, wnd, got), 32 * got.numel())
+    clipped = float(((want == int(lim) - 1) | (want == -int(lim)))
+                    .float().mean())
+    print(f"phase 12: mp3_window {name}: Tg={Tg} B={B} bit depth "
+          f"{bit_depth}: <= {err} LSB against plain, {n_diff} of "
+          f"{got.numel()} samples differ, {clipped:.3f} at a clip end; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms{lib_note}, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by})")
+    return err, ms, plain_ms, b_ms, b_by, lib_ms
+
+
 def tns_worst_case(P=1024, seed=0):
     """P short-window rows with all 24 filter slots in use (3 regions per
     window), order 12, directions alternating between neighbours, stable
@@ -1218,8 +1500,135 @@ def main() -> None:
           f"s per wall s")
     check_precision()
 
-    def bounds(b):
-        return {"bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+    # --- phases 12-13: MP3 serving, polyphase window kernel ---------------
+    from ohpipeline_tpu_torch.codecs.mp3 import synthesis as msyn
+    from ohpipeline_tpu_torch.codecs.mp3.serving import (
+        decode_mp3_streams_device)
+
+    t0 = time.perf_counter()
+    content = codec_content()
+    mstreams = content["mp3"]
+    print(f"phase 12: built {len(mstreams)} MP3 streams, "
+          f"{2 * len(content['mp3_blocks'])} block-type and LSF streams and "
+          f"{len(content['vorbis'])} Vorbis streams in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def serve_mp3(streams, device="cuda"):
+        t0 = time.perf_counter()
+        outs = decode_mp3_streams_device(streams, MP3_FRAMES_PER_GROUP,
+                                         device=device)
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t0
+
+    # the first call (it builds the MP3 Huffman core) also captures the
+    # window pass's arguments in group 0
+    (_outs, mp3_first), seen = first_calls(msyn, ["mp3_window"],
+                                           lambda: serve_mp3(mstreams))
+    vfull0, wnd, bd0 = seen["mp3_window"][0]
+    win = [check_mp3_window("serving group 0", vfull0, wnd, bd0,
+                            library=True)]
+    worst = mp3_window_case(dev)
+    for bd in (16, 24):
+        win.append(check_mp3_window(f"worst case, {bd} bits", worst, wnd,
+                                    bd))
+    win_err = max(w[0] for w in win)
+    _, win_ms, win_plain_ms, *win_bound, win_lib_ms = win[0]
+
+    check_precision()
+    _kernels.reset_launches()
+    mp3_outs, mp3_wall = serve_mp3(mstreams)
+    win_launches = _kernels.launches["mp3_window"]
+    if win_launches <= 0:
+        raise AssertionError("the mp3_window kernel did not run on the MP3 "
+                             "path")
+    mp3_audio_s = sum(o.shape[1] for o in mp3_outs) / 44100.0
+    mp3_lsb = 0
+    for name, card, streams in (
+            ("bench", mp3_outs[:MP3_CPU_STREAMS], mstreams[:MP3_CPU_STREAMS]),
+            ("block types", serve_mp3(content["mp3_blocks"])[0],
+             content["mp3_blocks"]),
+            ("LSF", serve_mp3(content["mp3_lsf"])[0], content["mp3_lsf"])):
+        cpu = decode_mp3_streams_device(streams, MP3_FRAMES_PER_GROUP,
+                                        device="cpu")
+        for s, (o, c) in enumerate(zip(card, cpu)):
+            if o.shape != c.shape:
+                raise AssertionError(f"MP3 {name} stream {s}: {o.shape} != "
+                                     f"{c.shape}")
+            mp3_lsb = max(mp3_lsb, int(np.abs(o.astype(np.int64) - c).max()))
+        if name != "bench":       # stream 0 through every block type
+            ref = mp3_host_reference(streams[0])
+            ref_err = np.abs(card[0] - ref).max()
+            ref_snr = snr_db(ref, card[0])
+            if not (ref_err <= 6 and ref_snr >= 80.0):
+                raise AssertionError(f"MP3 {name} stream 0 vs float64 scan: "
+                                     f"{ref_err} LSB, {ref_snr:.1f} dB")
+    if mp3_lsb > 1:
+        raise AssertionError(f"MP3 card vs CPU: {mp3_lsb} LSB")
+    ref = mp3_host_reference(mstreams[0])
+    mp3_err = float(np.abs(mp3_outs[0] - ref).max())
+    mp3_snr = snr_db(ref, mp3_outs[0])
+    if not (mp3_outs[0].shape == ref.shape and mp3_err <= 6
+            and mp3_snr >= 80.0):
+        raise AssertionError(f"MP3 stream 0 vs float64 scan: {mp3_err} LSB, "
+                             f"{mp3_snr:.1f} dB")
+    print(f"phase 13: {len(mstreams)} MP3 streams, {mp3_audio_s:.1f} s of "
+          f"audio at 44100 Hz; first {MP3_CPU_STREAMS} streams and the "
+          f"block-type and LSF streams card vs cpu <= {mp3_lsb} LSB; stream "
+          f"0 vs the float64 scan {mp3_err:.0f} LSB, {mp3_snr:.1f} dB; "
+          f"mp3_window launches {win_launches}; wall {mp3_wall:.3f} s "
+          f"(first call {mp3_first:.3f} s); {mp3_audio_s / mp3_wall:.1f} "
+          f"decoded audio s per wall s")
+    check_precision()
+
+    # --- phase 14: Vorbis serving -----------------------------------------
+    from ohpipeline_tpu_torch._host import vorbis_synthesis as vsyn
+    from ohpipeline_tpu_torch.codecs.vorbis import device as vdev
+
+    vstreams = content["vorbis"]
+
+    def serve_vorbis(streams, device="cuda"):
+        t0 = time.perf_counter()
+        outs = vdev.decode_vorbis_streams_device(streams, VORBIS_GROUP,
+                                                 device=device)
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t0
+
+    _outs, vorbis_first = serve_vorbis(vstreams)
+    vorbis_outs, vorbis_wall = serve_vorbis(vstreams)
+    vorbis_audio_s = sum(o.shape[1] for o in vorbis_outs) / 44100.0
+    cpu_v = vdev.decode_vorbis_streams_device(
+        vstreams[:VORBIS_CPU_STREAMS], VORBIS_GROUP, device="cpu")
+    v_lsb = 0
+    for s, (o, c) in enumerate(zip(vorbis_outs, cpu_v)):
+        if o.shape != c.shape:
+            raise AssertionError(f"Vorbis stream {s}: {o.shape} != "
+                                 f"{c.shape}")
+        v_lsb = max(v_lsb, int(np.abs(o.astype(np.int64) - c).max()))
+    if v_lsb > 1:
+        raise AssertionError(f"Vorbis card vs CPU: {v_lsb} LSB")
+    v_ref = []
+    for s in (0, VORBIS_STREAMS // 2):      # a bench and a mixed stream
+        info, blocks = vdev.capture_stream(vstreams[s])
+        lap = vsyn.Lapper(info.channels, info.blocksize[0])
+        ref = np.concatenate([lap.add_block(vsyn.imdct_many(x, n), n, pf, nf)
+                              for n, pf, nf, x in blocks], axis=1)
+        ref = np.clip(np.rint(ref * 32768.0), -32768, 32767)
+        err = float(np.abs(vorbis_outs[s] - ref).max())
+        db = snr_db(ref, vorbis_outs[s])
+        if not (vorbis_outs[s].shape == ref.shape and err <= 2
+                and db >= 60.0):
+            raise AssertionError(f"Vorbis stream {s} vs host synthesis: "
+                                 f"{err} LSB, {db:.1f} dB")
+        v_ref.append(f"stream {s} {err:.0f} LSB {db:.1f} dB")
+    print(f"phase 14: {len(vstreams)} Vorbis streams, {vorbis_audio_s:.1f} s "
+          f"of audio at 44100 Hz; first {VORBIS_CPU_STREAMS} streams card vs "
+          f"cpu <= {v_lsb} LSB; vs the host synthesis {', '.join(v_ref)}; "
+          f"wall {vorbis_wall:.3f} s (first call {vorbis_first:.3f} s); "
+          f"{vorbis_audio_s / vorbis_wall:.1f} decoded audio s per wall s")
+    check_precision()
+
+    def bounds(b, library_ms=None):
+        return {"bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
 
     kernels = [
         {"name": "lpc", "route": "cuda",
@@ -1247,6 +1656,12 @@ def main() -> None:
          "replaces": "ohpipeline_tpu/codecs/opus/celt_jax.py:156",
          "launches": celt_launches, "max_abs_err": comb_err,
          "ms": comb_ms, "plain_ms": comb_plain_ms, **bounds(comb_bound)},
+        {"name": "mp3_window", "route": "cuda",
+         "source": "ohpipeline_tpu_torch/csrc/mp3_window.cu",
+         "replaces": "ohpipeline_tpu/codecs/mp3/synthesis.py:346",
+         "launches": win_launches, "max_abs_err": win_err,
+         "ms": win_ms, "plain_ms": win_plain_ms,
+         **bounds(win_bound, win_lib_ms)},
     ]
     print(card_line)
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,9 @@ A plain facade over :mod:`ohpipeline_tpu_torch.host`, the port's own copies
 of the JAX package's host files: the C++ parsers behind ctypes (``native``),
 the FLAC bit reader, frame parser and encoder, the AAC tables and ADTS
 bitstream, the SBR host chain (``sbr.py`` and the host half of
-``sbr_jax.py``) and the CELT entropy layer with its Ogg Opus framing.
+``sbr_jax.py``), the CELT entropy layer with its Ogg Opus framing, the MP3
+bitstream, encoder and numpy host prep, and the Vorbis packet decoder,
+host synthesis and stream builder.
 Nothing here imports JAX or the JAX package.
 """
 
@@ -19,7 +21,12 @@ from .host.codecs.aac import sbr as aac_sbr
 from .host.codecs.aac import sbr_host as aac_sbr_jax
 from .host.codecs.aac import tables as aac_tables
 from .host.codecs.flac import encoder, frames
+from .host.codecs.mp3 import bitstream as mp3_bitstream
+from .host.codecs.mp3 import encoder as mp3_encoder
+from .host.codecs.mp3 import prep as mp3_prep
 from .host.codecs.opus import celt
+from .host.codecs.vorbis import encoder as vorbis_encoder
+from .host.codecs.vorbis import synthesis as vorbis_synthesis
 from .host.codecs.opus.packet import split_packet_frames
 from .host.containers import ogg
 
@@ -49,4 +56,5 @@ def sbr_native():
 __all__ = ["native", "frames", "encoder", "aac_tables", "aac_bitstream",
            "aac_sbr", "aac_sbr_jax", "aac_native", "sbr_native",
            "parse_metadata", "encode_flac", "base", "opus_headers", "celt",
-           "split_packet_frames", "ogg"]
+           "split_packet_frames", "ogg", "mp3_bitstream", "mp3_encoder",
+           "mp3_prep", "vorbis_encoder", "vorbis_synthesis"]

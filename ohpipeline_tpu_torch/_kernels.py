@@ -34,7 +34,8 @@ NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
-launches = {"lpc": 0, "rice": 0, "tns": 0, "sbr_env": 0, "celt_comb": 0}
+launches = {"lpc": 0, "rice": 0, "tns": 0, "sbr_env": 0, "celt_comb": 0,
+            "mp3_window": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -106,6 +107,8 @@ def _build() -> ctypes.CDLL:
     lib.ohp_sbr_env_map.restype = i32
     lib.ohp_celt_comb.argtypes = [p] * 6 + [i64, i32, i32, p]
     lib.ohp_celt_comb.restype = i32
+    lib.ohp_mp3_window.argtypes = [p, p, p, i32, i32, i32, p]
+    lib.ohp_mp3_window.restype = i32
     return lib
 
 
@@ -322,3 +325,47 @@ def celt_comb(y: torch.Tensor, Tv: torch.Tensor, gt: torch.Tensor,
     _raise_on(rc, "celt_comb")
     launches["celt_comb"] += 1
     return out, hist
+
+
+#: Polyphase slots per granule and carried V rows of the MP3 window pass,
+#: fixed in ``csrc/mp3_window.cu``; its blocks take 2 channels each.
+MP3_SLOTS, MP3_HIST, MP3_CT = 18, 15, 2
+
+
+def mp3_window(vfull: torch.Tensor, wnd: torch.Tensor,
+               bit_depth: int = 16) -> torch.Tensor:
+    """``csrc/mp3_window.cu``: the MP3 polyphase window pass on the card,
+    with the arguments and result of
+    ``codecs.mp3.synthesis.mp3_window_torch``: vfull (15 + 18 Tg, B, 64)
+    float32 (the carried V history oldest first, then the group's slots)
+    and wnd (16, 32) float32 -> (Tg, B, 576) int32 PCM in the bit_depth
+    range.  The kernel moves vfull 16 bytes at a time, so it must be
+    16-byte aligned."""
+    dev = vfull.device
+    if dev.type != "cuda":
+        raise ValueError(f"mp3_window kernel needs a CUDA tensor, got {dev}")
+    T, B = vfull.shape[0] - MP3_HIST, vfull.shape[1]
+    if T <= 0 or T % MP3_SLOTS:
+        raise ValueError(f"mp3_window: {T} slots after the {MP3_HIST}-row "
+                         f"history is not a whole number of granules")
+    if not 1 <= bit_depth <= 24:
+        raise ValueError(f"mp3_window kernel takes bit depths 1-24, got "
+                         f"{bit_depth}")
+    Tg = T // MP3_SLOTS
+    if vfull.numel() >= 2 ** 31 or Tg * B * 576 >= 2 ** 31 \
+            or B > MP3_CT * 65535:
+        raise ValueError(f"mp3_window kernel takes int32 extents and at most "
+                         f"{MP3_CT * 65535} channels, got Tg={Tg} B={B}")
+    _check("vfull", vfull, (MP3_HIST + T, B, 64), dev, torch.float32)
+    _check("wnd", wnd, (16, 32), dev, torch.float32)
+    if vfull.data_ptr() % 16:
+        raise ValueError("mp3_window kernel: vfull is not 16-byte aligned")
+    out = torch.empty((Tg, B, 576), dtype=torch.int32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        rc = lib.ohp_mp3_window(vfull.data_ptr(), wnd.data_ptr(),
+                                out.data_ptr(), Tg, B, bit_depth,
+                                _stream(dev))
+    _raise_on(rc, "mp3_window")
+    launches["mp3_window"] += 1
+    return out

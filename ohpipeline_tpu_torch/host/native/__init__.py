@@ -4,8 +4,10 @@ via ctypes.
 A copy of the JAX package's loader and bindings, cut to the families the
 port's paths reach: the FLAC rice-wire parser (``flac_unpack.cc``), the AAC
 unpacker and zigzag wire (``aac_unpack.cc``), the SBR payload parser
-(``sbr_parse.cc``) and the CELT entropy core (``celt_core.cc``).  The ``.cc``
-files are byte copies of the JAX package's.
+(``sbr_parse.cc``), the CELT entropy core (``celt_core.cc``), the MP3 Layer
+III Huffman decode (``mp3_core.cc``) and the Vorbis residue walk
+(``vorbis_core.cc``).  The ``.cc`` files are byte copies of the JAX
+package's.
 
 Each library is compiled into ``ohpipeline_tpu_torch/_build/`` under a name
 that carries a hash of its sources and flags, so an edited source rebuilds.
@@ -824,3 +826,154 @@ def sbr_parse_payload(payload: bytes, start_bit: int, nbits: int, *,
             "env": a["env"], "noise": a["noise"],
             "add_harm": a["add_harm"], "ps_bits": a["ps_bits"],
             "coupling": bool(a["coupling"][0])}
+
+
+# ---------------------------------------------------------------------------
+# MP3 Layer III Huffman spectrum decode (mp3_core.cc); the Python walk
+# ``parse_huffman_py`` in codecs/mp3/bitstream.py is its oracle.
+
+_MP3_TABLES_SET = False
+_MP3_KEEPALIVE: list = []
+
+
+def _mp3_lib() -> ctypes.CDLL:
+    lib = _load("mp3core", ["mp3_core.cc"])
+    if not getattr(lib, "_sigs_set", False):
+        lib.mp3_set_pair_table.argtypes = [
+            ctypes.c_int, ctypes.c_int, _u8p, _i32p, _i8p, ctypes.c_int]
+        lib.mp3_set_quad_table.argtypes = [
+            ctypes.c_int, ctypes.c_int, _u8p, _i32p, _i8p]
+        lib.mp3_parse_huffman.restype = ctypes.c_int
+        lib.mp3_parse_huffman.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            _i32p]
+        lib._sigs_set = True
+    global _MP3_TABLES_SET
+    with _LOCK:
+        if not _MP3_TABLES_SET:
+            from ..codecs.mp3 import tables as MT
+            for tid, lut in MT.PAIR_LUTS.items():
+                lens = np.ascontiguousarray(lut.lengths)
+                rows = np.ascontiguousarray(lut.rows)
+                vals = np.ascontiguousarray(
+                    np.asarray(lut.vals).reshape(-1).astype(np.int8))
+                _MP3_KEEPALIVE.extend([lens, rows, vals])
+                lib.mp3_set_pair_table(tid, lut.maxlen, lens, rows, vals,
+                                       int(MT.PAIR_LINBITS[tid]))
+            for which, lut in enumerate(MT.QUAD_LUTS):
+                lens = np.ascontiguousarray(lut.lengths)
+                rows = np.ascontiguousarray(lut.rows)
+                vals = np.ascontiguousarray(
+                    np.asarray(lut.vals).reshape(-1).astype(np.int8))
+                _MP3_KEEPALIVE.extend([lens, rows, vals])
+                lib.mp3_set_quad_table(which, lut.maxlen, lens, rows, vals)
+            _MP3_TABLES_SET = True
+    return lib
+
+
+def have_mp3_core() -> bool:
+    return _mp3_lib() is not None
+
+
+def mp3_parse_huffman(data: bytes, bit_pos: int, end_bit: int, big: int,
+                      region1: int, region2: int, tsel: tuple,
+                      count1table: int) -> tuple:
+    """(spectrum int32[576], new_bit_pos); EOFError/ValueError on
+    malformed data, mirroring the Python walk."""
+    lib = _mp3_lib()
+    out = np.zeros(576, np.int32)
+    pos = ctypes.c_int64(bit_pos)
+    rc = lib.mp3_parse_huffman(
+        data, len(data) * 8, ctypes.byref(pos), end_bit, big,
+        region1, region2, int(tsel[0]), int(tsel[1]), int(tsel[2]),
+        count1table, out)
+    if rc == -1:
+        raise EOFError("bitstream exhausted")
+    if rc == -2:
+        raise ValueError("bad mp3 huffman code")
+    return out, pos.value
+
+
+# ---------------------------------------------------------------------------
+# Vorbis residue walk (vorbis_core.cc); the Python walk in
+# codecs/vorbis/residue.py (``native=None``) is its oracle.
+
+def _vorbis_lib() -> ctypes.CDLL:
+    lib = _load("vorbiscore", ["vorbis_core.cc"])
+    if not getattr(lib, "_sigs_set", False):
+        lib.vorbis_ctx_create.restype = ctypes.c_void_p
+        lib.vorbis_ctx_create.argtypes = [
+            ctypes.c_int32, _i32p, _i32p, _u8p, _u8p, _f64p]
+        lib.vorbis_ctx_destroy.restype = None
+        lib.vorbis_ctx_destroy.argtypes = [ctypes.c_void_p]
+        lib.vorbis_residue_decode.restype = ctypes.c_int32
+        lib.vorbis_residue_decode.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int32,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int32, ctypes.c_int32, _i32p, ctypes.c_int32,
+            _u8p, _f64p, ctypes.c_int64]
+        lib._sigs_set = True
+    return lib
+
+
+def have_vorbis_core() -> bool:
+    return _vorbis_lib() is not None
+
+
+class VorbisNativeCtx:
+    """Native codebook set for one Vorbis stream (residue decode).
+
+    Serialises every parsed codebook (lengths -> canonical Huffman LUT
+    rebuilt in C++, VQ value tables as float64) once per stream; per
+    packet, `residue_decode` runs the full spec §8.6 partition walk in
+    C++ and advances the caller's bit position.  ``ok`` is False when the
+    core refused the codebooks.
+    """
+
+    def __init__(self, codebooks):
+        self._lib = _vorbis_lib()
+        self._handle = None
+        n = len(codebooks)
+        dims = np.array([b.dims for b in codebooks], np.int32)
+        entries = np.array([b.entries for b in codebooks], np.int32)
+        lengths = np.concatenate(
+            [np.asarray(b.lengths, np.uint8) for b in codebooks]) \
+            if n else np.zeros(0, np.uint8)
+        has_vec = np.array(
+            [1 if b.vectors is not None else 0 for b in codebooks],
+            np.uint8)
+        vecs = [np.ascontiguousarray(b.vectors, np.float64).ravel()
+                for b in codebooks if b.vectors is not None]
+        vec_cat = (np.concatenate(vecs) if vecs
+                   else np.zeros(0, np.float64))
+        h = self._lib.vorbis_ctx_create(
+            n, np.ascontiguousarray(dims), np.ascontiguousarray(entries),
+            np.ascontiguousarray(lengths), np.ascontiguousarray(has_vec),
+            vec_cat)
+        self._handle = h or None
+
+    @property
+    def ok(self) -> bool:
+        return self._handle is not None
+
+    def residue_decode(self, data_padded: bytes, nbits: int, bitpos: int,
+                       kind: int, begin: int, end: int, psize: int,
+                       classifications: int, classbook: int,
+                       res_books: np.ndarray, dnd: np.ndarray,
+                       out: np.ndarray, n: int):
+        """-> (status, new_bitpos); status 0 ok/EOP, 2/3 VorbisError."""
+        pos = ctypes.c_int64(bitpos)
+        rc = self._lib.vorbis_residue_decode(
+            self._handle, data_padded, nbits, ctypes.byref(pos), kind,
+            begin, end, psize, classifications, classbook, res_books,
+            out.shape[0], dnd, out, n)
+        return rc, pos.value
+
+    def __del__(self):
+        if getattr(self, "_handle", None) and self._lib is not None:
+            self._lib.vorbis_ctx_destroy(self._handle)
+            self._handle = None

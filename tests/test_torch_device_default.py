@@ -12,7 +12,9 @@ import torch
 from ohpipeline_tpu_torch import _host
 from ohpipeline_tpu_torch.codecs.aac import serving as aac_serving
 from ohpipeline_tpu_torch.codecs.flac import serving as flac_serving
+from ohpipeline_tpu_torch.codecs.mp3 import serving as mp3_serving
 from ohpipeline_tpu_torch.codecs.opus import celt
+from ohpipeline_tpu_torch.codecs.vorbis import device as vorbis_device
 from ohpipeline_tpu_torch.entry import entry
 
 ASSETS = pathlib.Path(__file__).resolve().parent / "assets"
@@ -21,6 +23,20 @@ ASSETS = pathlib.Path(__file__).resolve().parent / "assets"
 def _flac():
     x = np.stack([np.arange(3000) % 200 - 100] * 2).astype(np.int32)
     return _host.encode_flac(x, 44100, 16, blocksize=1024)
+
+
+def _mp3():
+    tone = _host.mp3_encoder.tone_spectrum(30)
+    return _host.mp3_encoder.build_stream([tone, tone], nframes=3)
+
+
+def _vorbis():
+    spec = _host.vorbis_encoder.StreamSpec(channels=1, sample_rate=44100,
+                                           bs0=256, bs1=1024,
+                                           coupling=False)
+    res = np.zeros((1, 512), np.int64)
+    res[0, 10] = 2
+    return spec.build([(1, [(140, 120)], res)] * 3)
 
 
 CALLS = {
@@ -39,6 +55,12 @@ CALLS = {
     "decode_celt_stream_device": (
         celt.decode_celt_stream_device,
         lambda: ((ASSETS / "dryrun.opus").read_bytes(),)),
+    "decode_mp3_streams_device": (
+        mp3_serving.decode_mp3_streams_device, lambda: ([_mp3()],)),
+    "decode_vorbis_streams_device": (
+        vorbis_device.decode_vorbis_streams_device, lambda: ([_vorbis()],)),
+    "decode_vorbis_stream_device": (
+        vorbis_device.decode_vorbis_stream_device, lambda: (_vorbis(),)),
 }
 
 

@@ -1,5 +1,6 @@
-"""The port stands alone: it decodes FLAC, AAC-LC, HE-AAC v1 and CELT and runs
-the flagship step with every import of jax and of ohpipeline_tpu failing, in
+"""The port stands alone: it decodes FLAC, AAC-LC, HE-AAC v1, CELT, MP3 and
+Vorbis and runs the flagship step with every import of jax and of
+ohpipeline_tpu failing, in
 the repository and in a directory that holds only the port, chip_smoke.py and
 the test assets; no module of ohpipeline_tpu is ever loaded; its HE path
 parses every SBR payload natively; its copies of the JAX package's .cc and
@@ -64,6 +65,32 @@ _BLOCKED = textwrap.dedent("""
     opus = open("tests/assets/dryrun.opus", "rb").read()
     pcm, = decode_celt_streams_device([opus], 32, device="cpu")
     assert pcm.shape == (2, 50 * 960) and pcm.any()
+
+    from ohpipeline_tpu_torch.codecs.mp3.serving import (
+        decode_mp3_streams_device)
+    from ohpipeline_tpu_torch.codecs.vorbis.device import (
+        decode_vorbis_stream_device)
+    from ohpipeline_tpu_torch.host.codecs.mp3 import bitstream
+    from ohpipeline_tpu_torch.host.codecs.vorbis import residue
+
+    def python_walk(*args, **kwargs):
+        raise AssertionError("a Python Huffman or residue walk was taken")
+
+    bitstream.parse_huffman_py = residue._decode_vectors = python_walk
+    rng = np.random.default_rng(3)
+    spec = np.where(rng.random((2, 576)) < 0.2,
+                    rng.integers(-9, 10, (2, 576)), 0)
+    mp3 = _host.mp3_encoder.build_stream([spec[0], spec[1]], nframes=5,
+                                         global_gain=180)
+    pcm, = decode_mp3_streams_device([mp3], 4, device="cpu")
+    assert pcm.shape == (2, 5 * 1152) and pcm.any()
+    vs = _host.vorbis_encoder.StreamSpec(channels=2, sample_rate=44100,
+                                         bs0=256, bs1=1024, coupling=True)
+    res = np.where(rng.random((2, 512)) < 0.3, rng.integers(-2, 3, (2, 512)),
+                   0)
+    ogg = vs.build([(1, [(140, 120)] * 2, res)] * 6)
+    pcm = decode_vorbis_stream_device(ogg, 4, device="cpu")
+    assert pcm.shape == (2, 5 * 512) and pcm.any()
     loaded = [m for m in sys.modules if m == "ohpipeline_tpu"
               or m.startswith("ohpipeline_tpu.")]
     assert loaded == ["ohpipeline_tpu"], loaded     # the blocking None
@@ -107,9 +134,12 @@ def _copies():
 
 def test_copied_sources_and_tables_are_the_originals():
     copies = _copies()
-    assert {p.name for p in copies} == {
-        "flac_unpack.cc", "aac_unpack.cc", "sbr_parse.cc", "celt_core.cc",
-        "tables.npz", "sbr_tables.npz", "celt_mode.npz"}
+    assert {str(p.relative_to(PORT / "host")) for p in copies} == {
+        "native/flac_unpack.cc", "native/aac_unpack.cc",
+        "native/sbr_parse.cc", "native/celt_core.cc", "native/mp3_core.cc",
+        "native/vorbis_core.cc", "codecs/aac/tables.npz",
+        "codecs/aac/sbr_tables.npz", "codecs/opus/celt_mode.npz",
+        "codecs/mp3/tables.npz", "codecs/vorbis/tables.npz"}
     for p in copies:
         original = REPO / "ohpipeline_tpu" / p.relative_to(PORT / "host")
         assert p.read_bytes() == original.read_bytes(), p
