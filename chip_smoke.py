@@ -98,7 +98,27 @@ Phases, each ending in torch.cuda.synchronize():
      all-long content, 8-15 tests/test_vorbis_device.py's mixed blocks, 8 s
      each.  The first 4 streams are held to the same call on the CPU (<= 1
      LSB), streams 0 and 8 to the host synthesis (imdct_many and Lapper,
-     float64; <= 2 LSB, >= 60 dB).
+     float64; <= 2 LSB, >= 60 dB);
+ 15. the parametric-stereo (HE-AAC v2) decorrelator and mixer kernel against
+     its plain version ps_scan_torch on the card, bit for bit, on the first
+     PS group (one stream, 3072 slots; captured from phase 16's first
+     call), on a worst case (16 streams, every channel near full scale on a
+     burst every 8 slots, every mixing group's matrix distinct, a seeded
+     carry) and on the second of a chained pair of worst-case groups; all
+     timed, with the first stream's block alone as the chain floor;
+ 16. the ADTS codec plug-in CodecAacAdts(device="cuda") over
+     tests/assets/dryrun.aac (AAC-LC) and dryrun_he.aac (HE-AAC v1; its
+     groups on the spec-mode SBR runner), held to the same plug-in on the
+     CPU (<= 1 and <= 2 LSB), with the sbr_env launch count of that run;
+     then the PS path: 16 streams of ps_content (dryrun_he.aac's left
+     channel at half level with a burst every 8 frames, the asset's SBR
+     data and seeded PsData; the repository has no v2 stream) through one
+     SbrPsDeviceRunner each in spec mode, 96 frames a group.  Stream 0 is
+     held to the same runners on the CPU (<= 2 LSB) and to sbr.py's
+     per-frame numpy process_frame_ps chain fed the same core and channel
+     data (max error < 5e-3 of the peak, rms error < 1e-3 of the rms), the
+     ps_mix launch count of a warm run must equal its number of groups, and
+     a traced run gives the card's idle share.
 
 A kernel's time is the mean of 20 launches captured in one CUDA graph
 (kernel_ms: a launch from Python takes longer on the host than a short
@@ -107,8 +127,9 @@ CUDA events (cuda_ms).  Each kernel's record carries its bound: the larger
 of the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
 tensor cores), the published peaks of an H100 SXM at 700 W, from this run's
-inputs.  No single PyTorch call computes the first five kernels'
-recurrences, so their library_ms is null; the MP3 window pass's is the time
+inputs.  No single PyTorch call computes the recurrences of the LPC,
+rice, TNS, SBR-envelope, CELT-comb and PS kernels, so their library_ms
+is null; the MP3 window pass's is the time
 of one grouped conv1d (cuDNN, TF32 off) plus the pair-add, the one PyTorch
 formulation of its FIR.
 
@@ -162,6 +183,9 @@ VORBIS_STREAMS = 16                   # the JAX package's Vorbis width
 VORBIS_SECONDS = 8.0
 VORBIS_GROUP = 64
 VORBIS_CPU_STREAMS = 4
+PS_STREAMS = 16                       # the HE-AAC v1 serving width
+PS_GROUP = 96                         # the plug-in's SBR_GROUP_FRAMES
+PS_FRAMES = 2 * PS_GROUP              # frames a PS stream
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM, 700 W
 FP32_OPS_PER_S = 67e12
 
@@ -671,6 +695,169 @@ def numpy_sbr_chain(stream: bytes, core, nframes: int):
     return np.concatenate(outs, axis=1)
 
 
+def _ps_row(rng, n: int, stride: int, lo: int, hi: int, prev) -> tuple:
+    """Raw IID or ICC deltas of one envelope (n bins at ``stride`` in the
+    34-wide rows) whose decoded values stay within [lo, hi]: targets near
+    the previous row ``prev``, coded in time (against ``prev``) or in
+    frequency.  Returns (raw, dt, the decoded targets)."""
+    base = np.asarray(prev)[np.arange(n) * stride]
+    v = np.clip(base + rng.integers(-3, 4, n), lo, hi)
+    dt = int(rng.random() < 0.5)
+    raw = v - base if dt else np.diff(v, prepend=0)
+    return [int(x) for x in raw], dt, v
+
+
+def ps_frame(rng, f: int, prev_iid, prev_icc):
+    """A seeded parametric-stereo frame (sbr.py PsData) at stream frame
+    ``f``, or None on every fifth frame (f % 5 == 4: the previous
+    parameters hold).  Frame by frame the modes cycle: mode_iid f % 6,
+    mode_icc (f // 2) % 6 (0-2 coarse or 20 bins, 3-5 fine IID; 2 and 5 the
+    34-band map), frame_class (f // 3) % 2, and the FIX envelope count
+    0, 1, 2, 4 by (f // 6) % 4; a VAR frame takes 1-4 envelopes at random
+    borders.  prev_iid / prev_icc are the decoder's 34-wide rows before
+    the frame."""
+    from ohpipeline_tpu_torch._host import aac_sbr
+
+    if f % 5 == 4:
+        return None
+    ps = aac_sbr.PsData(header_valid=True, enable_iid=True, mode_iid=f % 6,
+                        enable_icc=True, mode_icc=(f // 2) % 6,
+                        frame_class=(f // 3) % 2)
+    if ps.frame_class == 0:
+        ps.n_env = (0, 1, 2, 4)[(f // 6) % 4]
+    else:
+        ps.n_env = int(rng.integers(1, 5))
+        ps.borders = sorted(int(b) for b in rng.choice(
+            np.arange(1, 33), ps.n_env, replace=False))
+    fine = ps.mode_iid > 2
+    steps = 15 if fine else 7
+    res_iid, res_icc = ps.mode_iid % 3, ps.mode_icc % 3
+    bins = (10, 20, 34)
+    ps.iid_index, ps.iid_dt, ps.icc_index, ps.icc_dt = [], [], [], []
+    pi, pc = prev_iid, prev_icc
+    for _e in range(ps.n_env):
+        raw, dt, v = _ps_row(rng, bins[res_iid], 2 if res_iid == 0 else 1,
+                             -steps, steps, pi)
+        ps.iid_index.append(raw)
+        ps.iid_dt.append(dt)
+        pi = np.repeat(v, 2) if res_iid == 0 else v
+        raw, dt, v = _ps_row(rng, bins[res_icc], 2 if res_icc == 0 else 1,
+                             0, 7, pc)
+        ps.icc_index.append(raw)
+        ps.icc_dt.append(dt)
+        pc = np.repeat(v, 2) if res_icc == 0 else v
+    return ps
+
+
+PS_LEVEL = 0.5              # ps_content's core level against the asset's
+PS_BURST_EVERY = 8          # frames between its bursts, from frame 5
+PS_BURST_GAIN = 2.0         # a burst frame: back at the asset's level
+
+
+def ps_content(s: int, F: int) -> dict:
+    """Parametric-stereo content of stream s, F frames (the repository has
+    no HE-AAC v2 stream): tests/assets/dryrun_he.aac's frames from frame
+    10 * (s mod 5) on (an SBR header comes every 10 frames), then the whole
+    asset again as often as F needs.  The mono core is the left channel:
+    its prepared spectra and operator indices (the native parse and
+    synthesis.prepare_group, as the plug-in's spec mode takes them), scaled
+    by PS_LEVEL, and every PS_BURST_EVERY-th frame (from frame 5) by
+    PS_BURST_GAIN more: a burst whose decay drives transient factors below
+    1 (the asset's own onsets do so in most frames too); its SBR channel
+    data, parsed (stereo) with one SbrDecoder, and envelope and noise
+    levels from that decoder's dequant.  Each frame's channel data carries
+    a seeded PsData or None (ps_frame, seed 900 + s).  Returns dict(specs
+    (F, 1024) float32, ops (F,) int32, datas, Es, Qs, ps (per frame), dec
+    (the SbrDecoder: its header and tables for the runners, its DSP state
+    untouched for numpy_ps_chain))."""
+    from ohpipeline_tpu_torch._host import (aac_bitstream, aac_native,
+                                            aac_sbr, sbr_native)
+    from ohpipeline_tpu_torch.codecs.aac import synthesis as asyn
+
+    with open(HE_ASSET, "rb") as f:
+        data = f.read()
+    offsets, pos = [], 0
+    while pos < len(data):
+        h = aac_bitstream.parse_adts_header(data, pos)
+        if h is None:
+            break
+        offsets.append(pos)
+        pos += h.frame_bytes
+    cut = HE_HEADER_EVERY * (s % (len(offsets) // HE_HEADER_EVERY + 1))
+    stream = data[offsets[cut]:] + data * (F // len(offsets) + 1)
+    n, _, b = aac_native().aac_parse_group_sbr(stream, 0, channels=2,
+                                               max_frames=F)
+    assert n == F, (n, F)
+    specs, ops = asyn.prepare_group(b, F, 2, np.zeros(2, np.int32))
+    specs = specs[:, 0] * np.float32(PS_LEVEL)
+    specs[5::PS_BURST_EVERY] *= np.float32(PS_BURST_GAIN)
+    sbr_native()
+    dec = aac_sbr.SbrDecoder(aac_bitstream.parse_adts_header(stream)
+                             .sample_rate)
+    rng = np.random.default_rng(900 + s)
+    prev_iid, prev_icc = np.zeros(34, np.int64), np.zeros(34, np.int64)
+    datas, Es, Qs, pss = [], [], [], []
+    for f in range(F):
+        payload, nbits, crc = b["sbr"][f]
+        chans, _ = dec.parse_payload(payload, nbits, stereo=True, crc=crc)
+        E, Q, _a = dec.dequant(dec.header, chans[0].grid, chans[0].env,
+                               chans[0].noise)
+        ps = ps_frame(rng, f, prev_iid, prev_icc)
+        if ps is not None:
+            _, _, prev_iid, prev_icc = aac_sbr.decode_ps_indices(
+                ps, prev_iid, prev_icc)
+        chans[0].ps = ps
+        datas.append(chans[0])
+        Es.append(E)
+        Qs.append(Q)
+        pss.append(ps)
+    return dict(specs=specs, ops=ops[:, 0].copy(), datas=datas, Es=Es,
+                Qs=Qs, ps=pss, dec=dec)
+
+
+def ps_mix_worst_case(dev, C=16, S=3072, seed=15) -> tuple:
+    """Arguments of the PS scan (ps_scan / ps_scan_torch) on ``dev``: C
+    streams of S slots with every channel near full scale (complex normal
+    at 2^15) on a burst slot every 8 slots and at 1/20 of that between
+    them, so each burst's decay drives transient factors below 1; mixing
+    matrices uniform in [-2, 2), every group's distinct; a seeded carry
+    (positive power states, live delay lines and rings); the real
+    coefficient and index tables."""
+    import torch
+    from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
+
+    rng = np.random.default_rng(seed)
+    env = np.where(np.arange(S) % 8 == 0, 1.0, 0.05)[None, :, None]
+    mr, mi = ((rng.standard_normal((C, S, sbrd.PS_CH)) * 32768.0 * env)
+              .astype(np.float32) for _ in range(2))
+    H = rng.uniform(-2.0, 2.0, (C, S, 4, sbrd.PS_MIX)).astype(np.float32)
+    carry = (rng.standard_normal((C, sbrd._size(sbrd.PS_CARRY))) * 3000.0) \
+        .astype(np.float32)
+    carry[:, :3 * sbrd.PS_GROUPS] = np.abs(carry[:, :3 * sbrd.PS_GROUPS]) \
+        ** 2
+    k = sbrd.ps_constants(sbrd.PsStatic(), dev)
+    return (*(torch.from_numpy(a).to(dev) for a in (mr, mi, H, carry)),
+            k["coef"], k["imap"])
+
+
+def numpy_ps_chain(content: dict) -> np.ndarray:
+    """sbr.py's per-frame HE-AAC v2 chain (SbrDecoder.process_frame_ps,
+    float64) over ps_content's frames, fed the same core: the float32
+    numpy IMDCT of its spectra (the plug-in's _core_float_from_specs).
+    Returns (2, F * 2048)."""
+    from ohpipeline_tpu_torch.codecs import aac
+
+    F = len(content["datas"])
+    core = aac._core_float_from_specs(content["specs"][:, None],
+                                      content["ops"][:, None],
+                                      aac._StreamState(1))
+    dec = content["dec"]
+    return np.concatenate(
+        [dec.process_frame_ps(core[:, f * 1024:(f + 1) * 1024],
+                              [content["datas"][f]]) for f in range(F)],
+        axis=1)
+
+
 def celt_streams() -> list:
     """Stream s: dryrun.opus's OpusHead and OpusTags packets, its audio
     packets from frame 3 s (mod 50) on, then all of them CELT_REPEATS more
@@ -1166,6 +1353,95 @@ def check_tns(name, arrays, dev):
     return float(err.max()), ms, plain_ms, b_ms, b_by
 
 
+#: Float32 operations the PS scan does per slot of a stream: group powers
+#: (3 per member channel, 71 of them, and one add each: 284), the power
+#: recurrence (12 per group: 240), the 32 all-pass channels' delay phase,
+#: decay ramp and three links (56 each: 1792), the transient factor (2 per
+#: channel: 146) and the mix (12 per channel: 876).
+PS_OPS_PER_SLOT = 284 + 240 + 1792 + 146 + 876
+
+
+def check_ps_mix(name, args):
+    """PS decorrelator kernel against its plain version (ps_scan_torch) on
+    the card, bit for bit; returns (max |err|, kernel ms, plain ms, bound
+    ms, bound by, chain floor ms: the first stream's block alone)."""
+    import torch
+    from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
+
+    got = sbrd.ps_scan(*args)
+    want = sbrd.ps_scan_torch(*args)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"ps_mix kernel != plain on {name} (max |err| "
+                             f"{err:.4g})")
+    ms = kernel_ms(lambda: sbrd.ps_scan(*args), 20)
+    one = [a[:1] if a.dim() > 1 else a for a in args]
+    floor_ms = ms if args[0].shape[0] == 1 else \
+        kernel_ms(lambda: sbrd.ps_scan(*one), 20)
+    plain_ms = cuda_ms(lambda: sbrd.ps_scan_torch(*args), 1)
+    C, S = args[0].shape[:2]
+    b_ms, b_by = bound(nbytes(*args, *got), PS_OPS_PER_SLOT * C * S)
+    print(f"phase 15: ps_mix {name}: C={C} S={S} bit-exact; kernel "
+          f"{ms:.4f} ms (one stream alone {floor_ms:.4f}), plain "
+          f"{plain_ms:.1f} ms, bound {b_ms * 1e3:.2f} us ({b_by})")
+    return err, ms, plain_ms, b_ms, b_by, floor_ms
+
+
+def serve_ps(contents: list, device) -> tuple:
+    """The PS streams ``contents`` (ps_content) through one
+    SbrPsDeviceRunner each in spec mode, PS_GROUP frames a group, one
+    group in flight: every stream's group g is queued, then group g - 1's
+    PCM copied back.  Returns ([(2, F * 2048) int16 per stream], wall s)."""
+    import torch
+    from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
+
+    t0 = time.perf_counter()
+    runners = [sbrd.SbrPsDeviceRunner(c["dec"], device=device)
+               for c in contents]
+    zeros = np.zeros(1024, np.float32)
+    outs = [[] for _ in contents]
+    pending = []
+    for g0 in range(0, len(contents[0]["datas"]), PS_GROUP):
+        sl = slice(g0, g0 + PS_GROUP)
+        queued = [r.decode_group_lazy_spec(
+            c["specs"][sl], c["ops"][sl], c["datas"][sl], c["Es"][sl],
+            c["Qs"][sl], c["ps"][sl], zeros)
+            for r, c in zip(runners, contents)]
+        for o, resolve in zip(outs, pending):
+            o.append(resolve())
+        pending = queued
+    for o, resolve in zip(outs, pending):
+        o.append(resolve())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return ([np.concatenate(o, axis=1) for o in outs],
+            time.perf_counter() - t0)
+
+
+def plugin_decode(path: str, device) -> tuple:
+    """The ADTS codec plug-in (CodecAacAdts) over the file ``path`` on
+    ``device``: returns (stream info, (channels, n) int32 PCM, the codec)."""
+    import torch
+    from ohpipeline_tpu_torch.codecs import aac
+    from ohpipeline_tpu_torch.host.codecs.base import (BufferReader,
+                                                       EndOfStream)
+
+    with open(path, "rb") as f:
+        reader = BufferReader(f.read())
+    codec = aac.CodecAacAdts(device=device)
+    info = codec.stream_initialise(reader)
+    parts = []
+    while True:
+        try:
+            parts.append(codec.process(reader).resolve())
+        except EndOfStream:
+            break
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return info, np.concatenate(parts, axis=1), codec
+
+
 def check_precision() -> None:
     import torch
 
@@ -1627,6 +1903,86 @@ def main() -> None:
           f"{vorbis_audio_s / vorbis_wall:.1f} decoded audio s per wall s")
     check_precision()
 
+    # --- phases 15-16: the AAC codec plug-in, the HE-AAC v2 (PS) runner and
+    # the PS decorrelator kernel --------------------------------------------
+    _kernels.reset_launches()
+    plug = []
+    for path, lsb_max in ((AAC_ASSET, 1), (HE_ASSET, 2)):
+        name = os.path.basename(path)
+        info, card, codec = plugin_decode(path, "cuda")
+        runner = getattr(codec._sbr, "_device_runner", None)
+        if path == HE_ASSET and (runner is None
+                                 or runner.device.type != "cuda"):
+            raise AssertionError("the plug-in's HE groups did not take the "
+                                 "device runner")
+        cpu_info, cpu, _ = plugin_decode(path, "cpu")
+        if card.shape != cpu.shape or info != cpu_info:
+            raise AssertionError(f"plug-in {name}: card {card.shape} != cpu "
+                                 f"{cpu.shape}")
+        lsb = int(np.abs(card.astype(np.int64) - cpu).max())
+        if lsb > lsb_max:
+            raise AssertionError(f"plug-in {name} card vs CPU: {lsb} LSB")
+        plug.append(f"{name} ({info.codec_name}) {card.shape} card vs cpu "
+                    f"<= {lsb} LSB")
+    plug_launches = {k: _kernels.launches[k] for k in ("sbr_env", "tns")}
+    if plug_launches["sbr_env"] <= 0:
+        raise AssertionError("the sbr_env kernel did not run in the plug-in")
+    print(f"phase 16: CodecAacAdts on the card: {'; '.join(plug)}; launches "
+          f"{plug_launches} (the plug-in runs TNS in the host prep, as the "
+          f"reference's does)")
+
+    t0 = time.perf_counter()
+    pcontents = [ps_content(s, PS_FRAMES) for s in range(PS_STREAMS)]
+    print(f"phase 16: built {PS_STREAMS} PS streams of {PS_FRAMES} frames in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # the first call also captures the PS scan's arguments in group 0
+    (_outs, ps_first), seen = first_calls(
+        sbrd, ["ps_scan"], lambda: serve_ps(pcontents, "cuda"))
+    real = seen["ps_scan"][0]
+    psm_err, psm_ms, psm_plain_ms, *psm_bound, psm_floor = check_ps_mix(
+        "PS group 0", real)
+    worst = ps_mix_worst_case(dev)
+    psm_err = max(psm_err, check_ps_mix("worst case", worst)[0])
+    first_out = sbrd.ps_scan(*worst)
+    chained = (*ps_mix_worst_case(dev, seed=16)[:3], first_out[4],
+               *worst[4:])
+    psm_err = max(psm_err, check_ps_mix("worst case, second of a chained "
+                                        "pair", chained)[0])
+
+    check_precision()
+    _kernels.reset_launches()
+    ps_outs, ps_wall = serve_ps(pcontents, "cuda")
+    ps_launches = {k: _kernels.launches[k] for k in ("ps_mix", "sbr_env")}
+    ps_groups = PS_STREAMS * -(-PS_FRAMES // PS_GROUP)
+    if ps_launches["ps_mix"] != ps_groups or ps_launches["sbr_env"] <= 0:
+        raise AssertionError(f"PS path launches {ps_launches}, want "
+                             f"{ps_groups} ps_mix")
+    ps_audio_s = sum(o.shape[1] for o in ps_outs) / 44100.0
+    cpu_ps, _ = serve_ps(pcontents[:1], "cpu")
+    ps_lsb = int(np.abs(ps_outs[0].astype(np.int64) - cpu_ps[0]).max())
+    if ps_outs[0].shape != cpu_ps[0].shape or ps_lsb > 2:
+        raise AssertionError(f"PS stream 0 card vs CPU: {ps_lsb} LSB")
+    ref = numpy_ps_chain(ps_content(0, PS_FRAMES))
+    d = ps_outs[0].astype(np.float64) - ref
+    ps_rel = float(np.abs(d).max() / np.abs(ref).max())
+    ps_rms = float(np.sqrt((d ** 2).mean() / (ref ** 2).mean()))
+    if not (ps_rel < 5e-3 and ps_rms < 1e-3):
+        raise AssertionError(f"PS stream 0 vs numpy chain: rel {ps_rel:.3g}, "
+                             f"rms {ps_rms:.3g}")
+    from ohpipeline_tpu_torch.tools import trace_call
+
+    _prof, _events, ps_trace = trace_call(lambda: serve_ps(pcontents, "cuda"))
+    print(f"phase 16: {PS_STREAMS} PS streams, {ps_audio_s:.1f} s of audio "
+          f"at 44100 Hz in {ps_groups} groups; stream 0 card vs cpu <= "
+          f"{ps_lsb} LSB, vs the numpy process_frame_ps chain max "
+          f"{ps_rel:.3g} rms {ps_rms:.3g} (relative); launches {ps_launches}; "
+          f"wall {ps_wall:.3f} s (first call {ps_first:.3f} s); "
+          f"{ps_audio_s / ps_wall:.1f} decoded audio s per wall s; traced "
+          f"call {ps_trace['wall_s']:.3f} s, device busy "
+          f"{ps_trace['device_busy_ms']:.1f} ms, idle share "
+          f"{ps_trace['idle_share']:.4f}")
+    check_precision()
+
     def bounds(b, library_ms=None):
         return {"bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
 
@@ -1662,6 +2018,11 @@ def main() -> None:
          "launches": win_launches, "max_abs_err": win_err,
          "ms": win_ms, "plain_ms": win_plain_ms,
          **bounds(win_bound, win_lib_ms)},
+        {"name": "ps_mix", "route": "cuda",
+         "source": "ohpipeline_tpu_torch/csrc/ps_mix.cu",
+         "replaces": "ohpipeline_tpu/codecs/aac/sbr_jax.py:1149",
+         "launches": ps_launches["ps_mix"], "max_abs_err": psm_err,
+         "ms": psm_ms, "plain_ms": psm_plain_ms, **bounds(psm_bound)},
     ]
     print(card_line)
     print(json.dumps({"kernels": kernels}))

@@ -35,7 +35,7 @@ NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches = {"lpc": 0, "rice": 0, "tns": 0, "sbr_env": 0, "celt_comb": 0,
-            "mp3_window": 0}
+            "mp3_window": 0, "ps_mix": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -109,6 +109,8 @@ def _build() -> ctypes.CDLL:
     lib.ohp_celt_comb.restype = i32
     lib.ohp_mp3_window.argtypes = [p, p, p, i32, i32, i32, p]
     lib.ohp_mp3_window.restype = i32
+    lib.ohp_ps_mix.argtypes = [p] * 11 + [i32, i32, p]
+    lib.ohp_ps_mix.restype = i32
     return lib
 
 
@@ -369,3 +371,45 @@ def mp3_window(vfull: torch.Tensor, wnd: torch.Tensor,
     _raise_on(rc, "mp3_window")
     launches["mp3_window"] += 1
     return out
+
+
+#: Channels of a PS slot, mixing groups, and the sizes of one stream's scan
+#: carry and of the packed coefficient and index tables of the PS scan, fixed
+#: in ``csrc/ps_mix.cu`` (the layouts ``PS_CARRY``, ``PS_COEF`` and
+#: ``PS_IMAP`` of ``codecs.aac.sbr``).
+PS_CH, PS_MIX, PS_NCARRY, PS_NCOEF, PS_NIMAP = 73, 22, 2104, 367, 787
+
+
+def ps_mix(mr: torch.Tensor, mi: torch.Tensor, H: torch.Tensor,
+           carry: torch.Tensor, coef: torch.Tensor,
+           imap: torch.Tensor) -> tuple:
+    """``csrc/ps_mix.cu``: the parametric-stereo decorrelator and mixer scan
+    on the card, with the arguments and results of
+    ``codecs.aac.sbr.ps_scan_torch``: mr, mi (C, S, 73) float32 mid slots,
+    H (C, S, 4, 22) float32 mixing matrices, carry (C, 2104) float32,
+    coef (367,) float32 and imap (787,) int32.  One block per stream.
+    Returns new tensors (Lr, Li, Rr, Ri (C, S, 73), carry)."""
+    dev = mr.device
+    if dev.type != "cuda":
+        raise ValueError(f"ps_mix kernel needs a CUDA tensor, got {dev}")
+    C, S = mr.shape[:2]
+    if not (1 <= C < 2 ** 31 and 1 <= S < 2 ** 31):
+        raise ValueError(f"ps_mix kernel takes 1 <= C, S < 2^31, got C={C} "
+                         f"S={S}")
+    f32 = torch.float32
+    _check("mr", mr, (C, S, PS_CH), dev, f32)
+    _check("mi", mi, (C, S, PS_CH), dev, f32)
+    _check("H", H, (C, S, 4, PS_MIX), dev, f32)
+    _check("carry", carry, (C, PS_NCARRY), dev, f32)
+    _check("coef", coef, (PS_NCOEF,), dev, f32)
+    _check("imap", imap, (PS_NIMAP,), dev)
+    outs = [torch.empty_like(mr) for _ in range(4)]
+    carry_out = torch.empty_like(carry)
+    lib = library()
+    with torch.cuda.device(dev):
+        rc = lib.ohp_ps_mix(
+            *(t.data_ptr() for t in (mr, mi, H, carry, coef, imap, *outs,
+                                     carry_out)), C, S, _stream(dev))
+    _raise_on(rc, "ps_mix")
+    launches["ps_mix"] += 1
+    return (*outs, carry_out)

@@ -1,14 +1,28 @@
-"""AAC-LC device decode hooks on tensors.
+"""AAC-LC and HE-AAC decode on tensors: the device hooks and the ADTS codec
+plug-in.
 
-Port of the array-native hooks of ``ohpipeline_tpu.codecs.aac``: the host
+Port of ``ohpipeline_tpu.codecs.aac``.  The array-native hooks: the host
 parser (``native.aac_parse_group``) yields numpy arrays, the host prepares
 them (``synthesis.prepare_group`` or :func:`prepare_device_group`), and one
 device pass per group runs the filterbank (``synthesis.filterbank_fast``) or
 the device dequantization plus filterbank
 (``synthesis.dequant_filterbank``).  A stream's overlap and window shape
 carry across groups in :class:`_StreamState`, as numpy arrays like the JAX
-package's; each hook takes the ``device`` its pass runs on.  The per-frame
-object path (``decode_frames``, ``CodecAacAdts``) is not ported.
+package's; each hook takes the ``device`` its pass runs on.
+
+:class:`CodecAacAdts` is the ADTS plug-in (``recognise``,
+``stream_initialise``, ``process``): AAC-LC groups of :data:`GROUP_FRAMES`
+frames through the native unpacker and ``decode_group_arrays``, or through
+the Python parser and the per-frame object path (:func:`decode_frames`);
+HE-AAC groups of :data:`SBR_GROUP_FRAMES` frames through the SBR device
+runners of ``sbr``, one group in flight: v1 through
+``SbrDeviceRunner.decode_group_multi_lazy_spec``, v2 (parametric stereo)
+through ``SbrPsDeviceRunner.decode_group_lazy_spec``, both with the LC core's
+IMDCT fused on the device.  A group the device path does not take (a frame
+without an SBR payload, a header change inside the group, PS before the
+first PS parameters) is the content the reference also routes through the
+per-frame numpy chain (``sbr.py``'s ``SbrDecoder``), which stays here as it
+is there.  ``CodecAacMp4`` is not ported.
 """
 
 from __future__ import annotations
@@ -19,11 +33,21 @@ import numpy as np
 import torch
 
 from ..._host import aac_bitstream as BS
+from ..._host import aac_native, sbr_native
+from ..._host import aac_sbr as SBR
 from ..._host import aac_tables as T
+from ...host.codecs.base import (BufferReader, CodecBase, CodecStreamCorrupt,
+                                 DecodedBatch, EndOfStream, StreamReader)
+from ...host.codecs.flac.bitreader import BitReader
+from ...host.core.jiffies import Jiffies
+from ...host.core.streaminfo import PcmStreamInfo
+from . import sbr as SBRD
 from . import synthesis as SYN
 
-NCFG = 4
-MAX_SIDE = 16
+GROUP_FRAMES = 32
+#: HE-AAC groups are larger: the SBR device pass runs whole groups, so fewer,
+#: larger groups cost fewer dispatches and copies.
+SBR_GROUP_FRAMES = 96
 
 
 class _StreamState:
@@ -47,6 +71,109 @@ def _to_pcm(pcm, channels: int, bit_depth: int) -> np.ndarray:
     return out.transpose(1, 0, 2).reshape(channels, -1)
 
 
+def decode_frames(frames: list, state: _StreamState, bit_depth: int = 16, *,
+                  device) -> np.ndarray:
+    """Decode parsed frames (``BS.FrameData``) -> (channels, T*1024) int32:
+    the host prep of :func:`group_specs_from_frames`, then
+    ``synthesis.filterbank`` over the operator banks on ``device``."""
+    if not frames:
+        return np.zeros((len(state.prev_shape), 0), np.int32)
+    specs, opidx = group_specs_from_frames(frames, state)
+    spec_t, op_t, ov = _tensors(device, specs, opidx,
+                                np.asarray(state.overlap, np.float32))
+    pcm, new_ov = SYN.filterbank(spec_t, op_t, ov,
+                                 *SYN.operator_bank_constants(device=device))
+    state.overlap = new_ov.cpu().numpy()
+    return _to_pcm(pcm, specs.shape[1], bit_depth)
+
+
+def decode_frames_float(frames: list, state: _StreamState) -> np.ndarray:
+    """decode_frames without the final integer clip, in float64 numpy: the
+    core signal the per-frame SBR chain consumes ((C, T*1024))."""
+    if not frames:
+        return np.zeros((len(state.prev_shape), 0))
+    nch = len(frames[0].channels)
+    W, SW = SYN.window_bank()
+    ML = SYN._imdct_matrix(2048).astype(np.float64)
+    MS = SYN._imdct_matrix(256).astype(np.float64)
+    if state.overlap is None or np.ndim(state.overlap) != 2:
+        state.overlap = np.zeros((nch, 1024))
+    out = np.zeros((nch, len(frames) * 1024))
+    for t, frame in enumerate(frames):
+        chs = frame.channels
+        sp = [SYN.dequantize(ch, frame.rate_index) for ch in chs]
+        SYN.apply_spectral_tools(frame, sp)
+        for ci, ch in enumerate(chs):
+            SYN.apply_tns(ch, sp[ci], frame.rate_index)
+            mode = ch.ics.window_sequence
+            opidx = (mode * 4 + int(state.prev_shape[ci]) * 2
+                     + ch.ics.window_shape)
+            state.prev_shape[ci] = ch.ics.window_shape
+            if mode == BS.EIGHT_SHORT:
+                xs = sp[ci].reshape(8, 128) @ MS * SW[opidx & 3]
+                x = np.zeros(2048)
+                for w in range(8):
+                    x[448 + w * 128:448 + w * 128 + 256] += xs[w]
+            else:
+                x = sp[ci] @ ML * W[opidx]
+            out[ci, t * 1024:(t + 1) * 1024] = x[:1024] \
+                + state.overlap[ci]
+            state.overlap[ci] = x[1024:]
+    return out
+
+
+def group_specs_from_frames(frames: list, state: _StreamState) -> tuple:
+    """Prepared spectra + operator indices for a group of parsed frames
+    (host dequant, spectral tools and TNS only; the IMDCT runs wherever the
+    caller wants it).  Returns (specs (F, C, 1024) f32, ops (F, C) i32);
+    advances state.prev_shape."""
+    nch = len(frames[0].channels)
+    F = len(frames)
+    specs = np.zeros((F, nch, 1024), np.float32)
+    ops = np.zeros((F, nch), np.int32)
+    for t, frame in enumerate(frames):
+        chs = frame.channels
+        sp = [SYN.dequantize(ch, frame.rate_index) for ch in chs]
+        SYN.apply_spectral_tools(frame, sp)
+        for ci, ch in enumerate(chs):
+            SYN.apply_tns(ch, sp[ci], frame.rate_index)
+            mode = ch.ics.window_sequence
+            ops[t, ci] = (mode * 4 + int(state.prev_shape[ci]) * 2
+                          + ch.ics.window_shape)
+            state.prev_shape[ci] = ch.ics.window_shape
+            specs[t, ci] = sp[ci]
+    return specs, ops
+
+
+def _core_float_from_specs(specs: np.ndarray, ops: np.ndarray,
+                           state: _StreamState) -> np.ndarray:
+    """Batched float32 numpy IMDCT + window + overlap-add from prepared
+    spectra: specs (F, C, 1024) f32, ops (F, C) i32 operator indices.
+    Updates state.overlap; returns float64 (C, F*1024)."""
+    F, nch = specs.shape[:2]
+    W, SW = SYN.window_bank()
+    ML = SYN._imdct_matrix(2048).astype(np.float32)
+    MS = SYN._imdct_matrix(256).astype(np.float32)
+    if state.overlap is None or np.ndim(state.overlap) != 2:
+        state.overlap = np.zeros((nch, 1024))
+    flat = specs.reshape(F * nch, 1024)
+    x_long = (flat @ ML) * W[ops.reshape(-1)].astype(np.float32)
+    is_short = (ops.reshape(-1) >> 2) == BS.EIGHT_SHORT
+    if is_short.any():
+        xs = np.einsum("rwk,kn->rwn", flat.reshape(-1, 8, 128), MS) \
+            * SW[ops.reshape(-1) & 3].astype(np.float32)
+        x_short = np.zeros((F * nch, 2048), np.float32)
+        for w in range(8):
+            x_short[:, 448 + w * 128:448 + w * 128 + 256] += xs[:, w]
+        x_long = np.where(is_short[:, None], x_short, x_long)
+    x = x_long.reshape(F, nch, 2048).astype(np.float64)
+    out = np.zeros((nch, F * 1024))
+    for t in range(F):
+        out[:, t * 1024:(t + 1) * 1024] = x[t, :, :1024] + state.overlap
+        state.overlap = x[t, :, 1024:]
+    return out
+
+
 def decode_group_arrays(batch: dict, nframes: int, channels: int,
                         state: _StreamState, bit_depth: int = 16, *,
                         device) -> np.ndarray:
@@ -60,6 +187,10 @@ def decode_group_arrays(batch: dict, nframes: int, channels: int,
                                       *SYN.filterbank_constants(device=device))
     state.overlap = new_ov.cpu().numpy()
     return _to_pcm(pcm, channels, bit_depth)
+
+
+NCFG = 4
+MAX_SIDE = 16
 
 
 def prepare_device_group(batch: dict, nframes: int, channels: int,
@@ -185,3 +316,461 @@ def decode_group_device(batch: dict, nframes: int, channels: int,
     out, state.overlap = run_device_group(prep, state.overlap, bit_depth,
                                           device=device)
     return out
+
+
+def frames_from_arrays(batch: dict, nframes: int, channels: int) -> list:
+    """Rehydrate ``BS.FrameData`` from the native unpacker's dense arrays."""
+    frames = []
+    ri = batch["rate_index"]
+    for f in range(nframes):
+        chs = []
+        for c in range(channels):
+            r = f * channels + c
+            ics_row = batch["ics"][r]
+            ch = BS.ChannelData()
+            ch.ics = BS.IcsInfo(int(ics_row[0]), int(ics_row[1]),
+                                int(ics_row[2]), int(ics_row[3]))
+            ngroups = len(ch.ics.window_groups())
+            msfb = max(ch.ics.max_sfb, 1)
+            cb = np.zeros((ngroups, msfb), np.int8)
+            sf = np.zeros((ngroups, msfb), np.int32)
+            for g in range(ngroups):
+                cb[g, :ch.ics.max_sfb] = \
+                    batch["cb"][r][g * 15:g * 15 + ch.ics.max_sfb]
+                sf[g, :ch.ics.max_sfb] = \
+                    batch["sf"][r][g * 15:g * 15 + ch.ics.max_sfb]
+            ch.band_cb = cb
+            ch.scalefactors = sf
+            ch.quant = batch["quant"][r]
+            if batch["tnsn"][r].any():
+                tns = BS.TnsData()
+                for w in range(ch.ics.num_windows):
+                    filters = []
+                    for fi in range(int(batch["tnsn"][r][w])):
+                        length, order, direction = (
+                            int(x) for x in batch["tnsp"][r][w * 3 + fi])
+                        coeffs = batch["tnsc"][r][w * 3 + fi][:order]
+                        filters.append((length, order, direction, coeffs))
+                    tns.filters.append(filters)
+                ch.tns = tns
+            chs.append(ch)
+        ms = batch["msmask"][f]
+        mask = None
+        if channels == 2 and ms[0] != 0xFF and ms[0] != 0:
+            ics0 = chs[0].ics
+            ngroups = len(ics0.window_groups())
+            msfb = max(ics0.max_sfb, 1)
+            if ms[0] == 2:
+                mask = np.ones((ngroups, msfb), bool)
+            else:
+                mask = np.zeros((ngroups, msfb), bool)
+                for g in range(ngroups):
+                    mask[g, :ics0.max_sfb] = \
+                        ms[1 + g * 15:1 + g * 15 + ics0.max_sfb] != 0
+        frames.append(BS.FrameData(chs, mask, ri))
+    return frames
+
+
+class CodecAacAdts(CodecBase):
+    """ADTS-framed AAC-LC and HE-AAC (v1, and v2 with parametric stereo)
+    (reference CodecAacFdkAdts), decoding on ``device``.  ``use_native``
+    None or True parses with the port's native unpacker (built on first
+    use; a failed build raises), False with the Python parser."""
+
+    name = "AAC"
+    recognition_cost = 30
+    mime_types = ("audio/aac", "audio/aacp", "audio/mp4")
+
+    def __init__(self, use_native: Optional[bool] = None, *, device="cuda"):
+        self._info: Optional[PcmStreamInfo] = None
+        self._buf = b""
+        self._state: Optional[_StreamState] = None
+        self._hdr: Optional[BS.AdtsHeader] = None
+        self._sample_pos = 0
+        self._sbr_pending: Optional[tuple] = None
+        self._use_native = use_native is None or use_native
+        self._device = torch.device(device)
+
+    def recognise(self, header: bytes) -> bool:
+        # two consecutive valid ADTS headers (the reference requires the
+        # same double-sync to avoid false positives)
+        h1 = BS.parse_adts_header(header)
+        if h1 is None:
+            return False
+        h2 = BS.parse_adts_header(header, h1.frame_bytes)
+        return h2 is not None and h2.rate_index == h1.rate_index
+
+    def stream_initialise(self, reader: StreamReader) -> PcmStreamInfo:
+        self._buf = reader.read(64 * 1024)
+        self._reader = reader
+        hdr = BS.parse_adts_header(self._buf)
+        if hdr is None:
+            raise CodecStreamCorrupt("no ADTS sync")
+        self._hdr = hdr
+        self._state = _StreamState(hdr.channels)
+        self._sample_pos = 0
+        # HE-AAC: a low core rate with SBR extension payloads doubles the
+        # output rate (reference: AacFdkBase.cpp decodes HE via libSBRdec)
+        self._sbr = None
+        self._ps = False
+        if hdr.sample_rate <= 24000:
+            try:
+                br = BitReader(self._buf, hdr.header_bytes * 8)
+                fr = BS.parse_raw_data_block(br, hdr.rate_index)
+                if fr.sbr is not None:
+                    sbr_native()
+                    self._sbr = SBR.SbrDecoder(hdr.sample_rate)
+                    if hdr.channels == 1:
+                        # Probe with a throwaway decoder: parse_payload
+                        # advances delta-coding state (_parse_prev/_ps_prev)
+                        # and process() re-parses this same first frame.
+                        probe = SBR.SbrDecoder(hdr.sample_rate)
+                        chans, _c = probe.parse_payload(
+                            fr.sbr[0], fr.sbr[1], stereo=False,
+                            crc=fr.sbr[2])
+                        # PS rides the SBR extension: implicit v2
+                        self._ps = chans[0].ps is not None
+            except (BS.AacError, SBR.SbrError, ValueError, EOFError):
+                # a first frame that does not parse: plain AAC-LC
+                self._sbr = None
+                self._ps = False
+        rate = hdr.sample_rate * (2 if self._sbr else 1)
+        spf = 1024 * (2 if self._sbr else 1)
+        total = reader.stream_bytes
+        length_j = 0
+        if total:
+            # estimate duration from first-frame size (CBR-ish)
+            frames = total // max(hdr.frame_bytes, 1)
+            length_j = frames * spf * Jiffies.per_sample(rate)
+        name = "AAC"
+        if self._sbr:
+            name = "HE-AAC v2" if self._ps else "HE-AAC"
+        self._info = PcmStreamInfo(
+            sample_rate=rate, bit_depth=16,
+            num_channels=2 if self._ps else hdr.channels,
+            codec_name=name, lossless=False,
+            seekable=False,
+            bitrate=hdr.frame_bytes * 8 * hdr.sample_rate // 1024,
+            track_length_jiffies=length_j)
+        return self._info
+
+    def _fill(self, want: int) -> None:
+        while len(self._buf) < want:
+            chunk = self._reader.read(128 * 1024)
+            if not chunk:
+                return
+            self._buf += chunk
+
+    def process(self, reader: StreamReader) -> DecodedBatch:
+        group = SBR_GROUP_FRAMES if self._sbr is not None else GROUP_FRAMES
+        self._fill(self._hdr.frame_bytes * (group + 2))
+        if self._sbr is not None:
+            return self._process_sbr()
+        state, ch, dev = self._state, self._hdr.channels, self._device
+        if self._use_native:
+            n, pos, batch = aac_native().aac_parse_group(
+                self._buf, 0, channels=ch, max_frames=GROUP_FRAMES)
+            self._buf = self._buf[pos:]
+            if n == 0:
+                raise EndOfStream
+            first = self._sample_pos
+            self._sample_pos += n * 1024
+            return DecodedBatch(
+                self._info,
+                defer=lambda: decode_group_arrays(batch, n, ch, state,
+                                                  device=dev),
+                track_offset_samples=first)
+        frames = self._parse_python_frames(GROUP_FRAMES)
+        if not frames:
+            raise EndOfStream
+        first = self._sample_pos
+        self._sample_pos += len(frames) * 1024
+        return DecodedBatch(
+            self._info, defer=lambda: decode_frames(frames, state, device=dev),
+            track_offset_samples=first)
+
+    def _parse_python_frames(self,
+                             max_frames: int = SBR_GROUP_FRAMES) -> list:
+        """Up to ``max_frames`` frames from the buffer through the Python
+        parser, resyncing past damage; frames that do not parse, or carry
+        another channel count, are dropped."""
+        frames: list = []
+        pos = 0
+        while len(frames) < max_frames:
+            hdr = BS.parse_adts_header(self._buf, pos)
+            if hdr is None:
+                nxt = self._buf.find(b"\xff", pos + 1)
+                if nxt == -1 or nxt + 7 > len(self._buf):
+                    break
+                pos = nxt
+                continue
+            if pos + hdr.frame_bytes > len(self._buf):
+                break
+            br = BitReader(self._buf, (pos + hdr.header_bytes) * 8)
+            try:
+                frame = BS.parse_raw_data_block(br, hdr.rate_index)
+                if len(frame.channels) == self._hdr.channels:
+                    frames.append(frame)
+            except (BS.AacError, ValueError, EOFError):
+                pass
+            pos += hdr.frame_bytes
+        self._buf = self._buf[pos:]
+        return frames
+
+    def _parse_native_sbr_group(self) -> tuple:
+        """HE-AAC group parse through the native unpacker (the LC parse
+        plus each frame's SBR fill payload): (nframes, batch) with the dense
+        arrays kept as they are; the decode preps spectra from them and
+        rehydrates frame objects only for the per-frame numpy chain."""
+        n, pos, batch = aac_native().aac_parse_group_sbr(
+            self._buf, 0, channels=self._hdr.channels,
+            max_frames=SBR_GROUP_FRAMES)
+        self._buf = self._buf[pos:]
+        return n, batch
+
+    def _parse_dispatch_sbr_group(self) -> Optional[tuple]:
+        """Parse one SBR group and queue its decode.  Returns (resolve,
+        track offset, nsamples), or None at the end of the stream."""
+        self._fill(self._hdr.frame_bytes * (SBR_GROUP_FRAMES + 2))
+        frames = batch = None
+        if self._use_native:
+            n, batch = self._parse_native_sbr_group()
+        else:
+            frames = self._parse_python_frames()
+            n = len(frames)
+        if not n:
+            return None
+        resolve, ns = _sbr_decode_frames_lazy(
+            frames, self._state, self._sbr, self._hdr.channels, ps=self._ps,
+            batch=batch, nframes=n, device=self._device)
+        first = self._sample_pos
+        self._sample_pos += ns
+        return resolve, first, ns
+
+    def _process_sbr(self) -> DecodedBatch:
+        """One group in flight: group k's device pass runs while this call
+        parses and queues group k+1; the returned batch is the oldest group
+        queued (offsets carried per group, so timing is exact, one group
+        of added latency)."""
+        if self._sbr_pending is None:
+            self._sbr_pending = self._parse_dispatch_sbr_group()
+            if self._sbr_pending is None:
+                raise EndOfStream
+        nxt = self._parse_dispatch_sbr_group()
+        resolve, first, _ns = self._sbr_pending
+        self._sbr_pending = nxt
+        return DecodedBatch(self._info, samples=resolve(),
+                            track_offset_samples=first)
+
+
+def _sbr_decode_frames(frames, state, sbr, nch, ps: bool = False,
+                       batch: Optional[dict] = None, nframes: int = 0, *,
+                       device) -> np.ndarray:
+    """Core decode + SBR reconstruction for a group of parsed frames, as
+    (C, F*2048) int32 (2 channels with ``ps``: the mono core becomes stereo
+    through the parametric-stereo tool).  A regular group runs on
+    ``device``; an irregular one through the per-frame numpy chain (see
+    :func:`_sbr_decode_frames_lazy`)."""
+    resolve, _ns = _sbr_decode_frames_lazy(frames, state, sbr, nch, ps=ps,
+                                           batch=batch, nframes=nframes,
+                                           device=device)
+    return resolve()
+
+
+def _sbr_decode_frames_lazy(frames, state, sbr, nch, ps: bool = False,
+                            batch: Optional[dict] = None, nframes: int = 0,
+                            *, device) -> tuple:
+    """:func:`_sbr_decode_frames` with the device pass queued: returns
+    (resolve, nsamples_out), where ``resolve()`` copies the PCM back, so the
+    caller can parse and queue the next group first.  Groups the device
+    path declines (a frame without an SBR payload, a header change inside
+    the group, or, with PS, no PS parameters yet) take the per-frame numpy
+    chain of ``sbr.py``, as in the reference; that output is made at once
+    (resolve is then free)."""
+    if not ps:
+        out = _sbr_decode_frames_device(frames, state, sbr, nch, batch=batch,
+                                        nframes=nframes, lazy=True,
+                                        device=device)
+    else:
+        out = _sbr_decode_frames_device_ps(frames, state, sbr, batch=batch,
+                                           nframes=nframes, lazy=True,
+                                           device=device)
+    if out is not None:
+        F = nframes if batch is not None else len(frames)
+        return out, F * 2048
+    # the device path fused the LC core: its overlap tail must come
+    # back to the host before the per-frame numpy chain continues
+    _sync_core_overlap(sbr, state)
+    if frames is None:
+        # a native-parsed group: rehydrate objects for the numpy chain
+        frames = frames_from_arrays(batch, nframes, nch)
+        for f, fr in enumerate(frames):
+            fr.sbr = batch["sbr"][f]
+    outs = []
+    for fr in frames:
+        core = decode_frames_float([fr], state)
+        if fr.sbr is not None:
+            payload, nbits, crc = fr.sbr
+            try:
+                chans, coupling = sbr.parse_payload(
+                    payload, nbits, stereo=(nch == 2), crc=crc)
+                if ps:
+                    outs.append(sbr.process_frame_ps(core, chans))
+                else:
+                    outs.append(sbr.process_frame(core, chans, coupling))
+                continue
+            except SBR.SbrError:
+                pass
+        # no/invalid payload: plain 2x hold upsample keeps timing
+        up = np.repeat(core, 2, axis=1)
+        outs.append(np.repeat(up, 2, axis=0) if ps else up)
+    pcm = np.concatenate(outs, axis=1)
+    pcm = np.clip(np.rint(pcm), -32768, 32767).astype(np.int32)
+    return (lambda: pcm), pcm.shape[1]
+
+
+def _sync_core_overlap(sbr, state: _StreamState) -> None:
+    """Pull the fused core-overlap tail back from any device runner into the
+    host _StreamState: called before a group of the numpy chain (or a
+    runner rebuild), so the LC filterbank chain stays continuous across
+    path switches."""
+    for attr in ("_device_runner", "_ps_device_runner"):
+        r = getattr(sbr, attr, None)
+        if r is not None:
+            ov = r.fetch_core_overlap()
+            if ov is not None:
+                nch = len(state.prev_shape)
+                state.overlap = np.asarray(ov, np.float64) \
+                    .reshape(-1, 1024)[:nch]
+
+
+def _parse_group(sbr, payloads: list, nch: int, ps: bool) -> Optional[list]:
+    """Parse and dequantise a group's SBR payloads for the device path, or
+    return None (with the decoder's delta-coding state restored, so the
+    numpy chain re-parses the same payloads) for a group it does not take:
+    a missing payload, a header change inside the group, or a PS frame in
+    a v1 group.  Returns per frame (channel data, dequantised levels per
+    channel)."""
+    header0 = sbr.header
+    # shallow list copy: parsing REPLACES _parse_prev items (tuples of
+    # fresh rows), never mutates them, so restoring the list restores the
+    # state
+    pp = getattr(sbr, "_parse_prev", None)
+    snap = (list(pp) if pp is not None else None,
+            getattr(sbr, "_ps_prev", None))
+    parsed = []
+    try:
+        for pl in payloads:
+            if pl is None:
+                raise SBR.SbrError("missing payload in group")
+            payload, nbits, crc = pl
+            chans, coupling = sbr.parse_payload(payload, nbits,
+                                                stereo=(nch == 2), crc=crc)
+            if header0 is not None and sbr.header != header0:
+                raise SBR.SbrError("header change mid-group")
+            header0 = sbr.header
+            if not ps and chans[0].ps is not None and nch == 1:
+                raise SBR.SbrError("PS stream")
+            EQ = [sbr.dequant(sbr.header, chans[i].grid, chans[i].env,
+                              chans[i].noise) for i in range(nch)]
+            if nch == 2 and coupling:
+                a = EQ[0][2]
+                (EL, QL), (ER, QR) = sbr.unmap_coupled(
+                    EQ[0][0], EQ[0][1], chans[1].env, chans[1].noise, a)
+                EQ = [(EL, QL, a), (ER, QR, a)]
+            parsed.append((chans, EQ))
+    except SBR.SbrError:
+        if snap[0] is not None:
+            sbr._parse_prev = snap[0]
+        sbr._ps_prev = snap[1]
+        return None
+    return parsed
+
+
+def _group_specs(frames, state, batch, F: int, nch: int) -> tuple:
+    """A group's prepared core spectra and operator indices, from the
+    native arrays or the frame objects; advances state.prev_shape."""
+    if batch is not None:
+        return SYN.prepare_group(batch, F, nch, state.prev_shape)
+    return group_specs_from_frames(frames, state)
+
+
+def _sbr_decode_frames_device_ps(frames, state, sbr,
+                                 batch: Optional[dict] = None,
+                                 nframes: int = 0, lazy: bool = False, *,
+                                 device):
+    """HE-AAC v2 group on ``device``: mono core + SBR + parametric stereo
+    (``SbrPsDeviceRunner``), the core's IMDCT fused there.  Returns None for
+    a group the numpy chain takes; with ``lazy`` a zero-argument function
+    that copies the (2, F*2048) int32 PCM back, else the PCM."""
+    payloads = (batch["sbr"][:nframes] if batch is not None
+                else [fr.sbr for fr in frames])
+    parsed = _parse_group(sbr, payloads, 1, True)
+    if parsed is None:
+        return None
+    header0 = sbr.header
+    runner = getattr(sbr, "_ps_device_runner", None)
+    if runner is None or runner.dec is not sbr \
+            or runner.static_header != header0:
+        _sync_core_overlap(sbr, state)  # old runner may hold the tail
+        runner = SBRD.SbrPsDeviceRunner(sbr, device=device)
+        runner.static_header = header0
+        sbr._ps_device_runner = runner
+    if runner.pdec_host.last_ps is None and parsed[0][0][0].ps is None:
+        return None              # no PS parameters yet: numpy handles it
+    F = nframes if batch is not None else len(frames)
+    specs, ops = _group_specs(frames, state, batch, F, 1)
+    resolve = runner.decode_group_lazy_spec(
+        specs[:, 0], ops[:, 0], [c[0] for c, _ in parsed],
+        [eq[0][0] for _, eq in parsed], [eq[0][1] for _, eq in parsed],
+        [c[0].ps for c, _ in parsed], state.overlap[0])
+    if lazy:
+        return lambda: resolve().astype(np.int32)
+    return resolve().astype(np.int32)
+
+
+def _sbr_decode_frames_device(frames, state, sbr, nch,
+                              batch: Optional[dict] = None, nframes: int = 0,
+                              lazy: bool = False, *, device):
+    """HE-AAC v1 group on ``device`` (every frame carries a payload, one
+    header): ``SbrDeviceRunner`` in spec mode, the core's IMDCT fused there.
+    Returns None for a group the numpy chain takes; with ``lazy`` a
+    zero-argument function that copies the (C, F*2048) int32 PCM back,
+    else the PCM."""
+    payloads = (batch["sbr"][:nframes] if batch is not None
+                else [fr.sbr for fr in frames])
+    parsed = _parse_group(sbr, payloads, nch, False)
+    if parsed is None:
+        return None
+    header0 = sbr.header
+    runner = getattr(sbr, "_device_runner", None)
+    if runner is None or runner.dec is not sbr \
+            or runner.static_header != header0:
+        _sync_core_overlap(sbr, state)  # old runner may hold the tail
+        runner = SBRD.SbrDeviceRunner(sbr, nch, device=device)
+        runner.static_header = header0
+        sbr._device_runner = runner
+    F = nframes if batch is not None else len(frames)
+    specs, ops = _group_specs(frames, state, batch, F, nch)
+    per_ch = [([c[ch] for c, _ in parsed], [eq[ch][0] for _, eq in parsed],
+               [eq[ch][1] for _, eq in parsed]) for ch in range(nch)]
+    resolve = runner.decode_group_multi_lazy_spec(
+        np.ascontiguousarray(specs.transpose(1, 0, 2)),
+        np.ascontiguousarray(ops.T), per_ch, state.overlap)
+    return resolve if lazy else resolve()
+
+
+def decode_adts(data: bytes, *, device="cuda") -> tuple:
+    """Whole-buffer ADTS decode through :class:`CodecAacAdts` on ``device``:
+    returns (PcmStreamInfo, (channels, n) int32 PCM)."""
+    codec = CodecAacAdts(device=device)
+    r = BufferReader(data)
+    info = codec.stream_initialise(r)
+    parts = []
+    while True:
+        try:
+            parts.append(codec.process(r).resolve())
+        except EndOfStream:
+            break
+    return info, (np.concatenate(parts, axis=1) if parts
+                  else np.zeros((info.num_channels, 0), np.int32))

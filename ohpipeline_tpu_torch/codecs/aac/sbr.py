@@ -1,11 +1,14 @@
-"""HE-AAC v1 SBR reconstruction for groups of frames, on tensors.
+"""HE-AAC (v1 SBR and v2 parametric stereo) reconstruction for groups of
+frames, on tensors.
 
 Port of the device half of ``ohpipeline_tpu.codecs.aac.sbr_jax``.  Its host
 half (``SbrStatic``, ``SbrFrameCond``, ``device_init_state`` and the cond
 builder ``build_frame_cond``, which advances the per-channel counters of the
-numpy chain in ``sbr.py``) is the port's copy ``host/codecs/aac/sbr_host.py``,
-reached through ``_host``.  The numpy cond planes and state dicts cross to the device
-through :func:`cond_to_device` and :func:`state_to_device`.
+numpy chain in ``sbr.py``; ``PsStatic``, ``ps_init_state`` and
+``build_ps_H_slots``) is the port's copy ``host/codecs/aac/sbr_host.py``,
+reached through ``_host``.  The numpy cond planes and state dicts cross to
+the device through :func:`cond_to_device`, :func:`state_to_device` and
+:func:`ps_state_to_device`.
 
 :func:`device_decode_group` is ``sbr_jax.device_decode_group`` batched over a
 leading channel axis ``C`` in place of ``jax.vmap``: analysis QMF (two
@@ -20,11 +23,21 @@ on CPU tensors.  Matrix products stay
 ``torch.matmul`` in float32 with TF32 off, as the reference runs
 ``Precision.HIGHEST``.
 
-:class:`SbrDeviceRunner` is the zigzag-wire multi-stream runner of the
-serving path: the AAC-LC core (``synthesis.decode_chunk_zz``) and the SBR
-group of every stream's channels in one pass, with the SBR state and the
-core overlap kept on the device across groups.  The per-channel,
-spec-mode and PS methods of the JAX runner are not ported.
+:class:`SbrDeviceRunner` runs the AAC-LC core and the SBR group of several
+channels in one pass, with the SBR state and the core overlap kept on the
+device across groups: on the zigzag wire of the serving path
+(``synthesis.decode_chunk_zz``), and in spec mode, from prepared spectra
+through :func:`core_imdct_device`, for the codec plug-in.  The JAX runner's
+per-channel and PCM-mode methods are not ported.
+
+HE-AAC v2 (parametric stereo): :func:`device_decode_qmf` hands the adjusted
+QMF slots of the mono core to :func:`ps_decorrelate_mix`: the hybrid
+analysis (:func:`ps_hybrid_analysis`, 13-tap FIRs as ``torch.matmul``), the
+decorrelator and mixer scan over the group's slots (:func:`ps_scan`: the
+hand-written kernel ``csrc/ps_mix.cu`` on CUDA tensors, its plain version
+:func:`ps_scan_torch` on CPU tensors) and the hybrid synthesis; two
+synthesis QMFs follow (:func:`device_decode_group_ps`).
+:class:`SbrPsDeviceRunner` drives it group by group.
 """
 
 from __future__ import annotations
@@ -389,6 +402,26 @@ def envelope_inputs(static: SbrStatic, pcm, cond: dict, state: dict):
     return args, (Xre_ext, Xim_ext), new_state
 
 
+def device_decode_qmf(static: SbrStatic, pcm, cond: dict, state: dict):
+    """:func:`device_decode_group` up to the synthesis QMF (``sbr_jax.
+    device_decode_group`` with ``ps_extras``): returns ((Zr, Zi) the (C,
+    F*32, 64) adjusted QMF slots, new_state), with ``syn_state`` passed
+    through unchanged, so that the caller (the parametric-stereo stage) owns
+    the synthesis states."""
+    C, F, _ = pcm.shape
+    kx, M = static.kx, static.M
+    NS = F * 32
+    args, (Xre_ext, Xim_ext), new_state = envelope_inputs(static, pcm, cond,
+                                                          state)
+    Or, Oi, filt, tail_r, tail_i = envelope_scan(*args)
+    hi = pcm.new_zeros((C, NS, 64 - kx - M))
+    Zr = torch.cat([Xre_ext[:, :NS, :kx], Or.reshape(C, NS, M), hi], dim=2)
+    Zi = torch.cat([Xim_ext[:, :NS, :kx], Oi.reshape(C, NS, M), hi], dim=2)
+    new_state.update(tail_r=tail_r, tail_i=tail_i,
+                     syn_state=state["syn_state"], filt=filt)
+    return (Zr, Zi), new_state
+
+
 def device_decode_group(static: SbrStatic, pcm, cond: dict, state: dict):
     """SBR group decode of C channels at once (``sbr_jax.
     device_decode_group`` under ``jax.vmap``).
@@ -397,20 +430,9 @@ def device_decode_group(static: SbrStatic, pcm, cond: dict, state: dict):
     (:func:`cond_to_device`); state: (C, ...) state tensors
     (:func:`state_to_device`).  Returns (out (C, F*2048) float32,
     new_state)."""
-    C, F, _ = pcm.shape
-    kx, M = static.kx, static.M
-    NS = F * 32
-    args, (Xre_ext, Xim_ext), new_state = envelope_inputs(static, pcm, cond,
-                                                          state)
-    Or, Oi, filt, tail_r, tail_i = envelope_scan(*args)
-
-    # ---- synthesis QMF over the frame-output slots -----------------------
-    hi = pcm.new_zeros((C, NS, 64 - kx - M))
-    Zr = torch.cat([Xre_ext[:, :NS, :kx], Or.reshape(C, NS, M), hi], dim=2)
-    Zi = torch.cat([Xim_ext[:, :NS, :kx], Oi.reshape(C, NS, M), hi], dim=2)
-    out, new_syn = synthesize_slots(static, Zr, Zi, state["syn_state"])
-    new_state.update(tail_r=tail_r, tail_i=tail_i, syn_state=new_syn,
-                     filt=filt)
+    (Zr, Zi), new_state = device_decode_qmf(static, pcm, cond, state)
+    out, new_state["syn_state"] = synthesize_slots(static, Zr, Zi,
+                                                   state["syn_state"])
     return out, new_state
 
 
@@ -431,13 +453,43 @@ def synthesize_slots(static: SbrStatic, Zr, Zi, syn_state):
     return out[..., :NS * 64], out[..., NS * 64:]
 
 
-class SbrDeviceRunner:
-    """The zigzag-wire multi-stream runner of ``sbr_jax.SbrDeviceRunner``:
-    the AAC-LC core and the SBR group of ``nch`` channels (every stream's,
-    side by side) in one pass on ``device``.  Parsing, dequantisation and
-    the cond build stay on the host."""
+_CORE_CONSTS: dict = {}
 
-    def __init__(self, dec: SBR.SbrDecoder, nch: int = 2, *, device):
+
+def core_imdct_device(specs, opidx, core_ov):
+    """The LC core filterbank of a channel on its tensors' device
+    (``sbr_jax.core_imdct_device``, with any leading channel axes): specs
+    (..., F, 1024) float32 prepared spectra, opidx (..., F) int operator
+    indices, core_ov (..., 1024) float32 overlap tail.  The IMDCT is one
+    ``torch.matmul`` per window length, each row takes its window, and the
+    overlap-add is a shift (frame f needs only frame f-1's tail).  Returns
+    (pcm (..., F, 1024), new_ov (..., 1024))."""
+    key = str(specs.device)
+    if key not in _CORE_CONSTS:
+        _CORE_CONSTS[key] = SYN.filterbank_constants(device=specs.device)
+    lead, F = specs.shape[:-2], specs.shape[-2]
+    x = SYN._imdct_windowed(specs.reshape(-1, 1024), opidx.reshape(-1).long(),
+                            *_CORE_CONSTS[key], split=False)
+    x = x.reshape(*lead, F, 2048)
+    prev = torch.cat([core_ov[..., None, :], x[..., :-1, 1024:]], dim=-2)
+    return x[..., :1024] + prev, x[..., -1, 1024:]
+
+
+def _pcm16(out):
+    """Float PCM -> int16 on its device, rounded half to even and clipped."""
+    return torch.round(out).clamp_(-32768, 32767).to(torch.int16)
+
+
+class SbrDeviceRunner:
+    """The multi-channel runner of ``sbr_jax.SbrDeviceRunner``: the AAC-LC
+    core and the SBR group of ``nch`` channels side by side in one pass on
+    ``device``, with the SBR state and the core overlap kept there across
+    groups.  Two wires: the zigzag wire of the serving path
+    (:meth:`decode_group_multi_zz`) and the prepared spectra of the codec
+    plug-in (:meth:`decode_group_multi_lazy_spec`).  Parsing,
+    dequantisation and the cond build stay on the host."""
+
+    def __init__(self, dec: SBR.SbrDecoder, nch: int = 2, *, device="cuda"):
         self.dec = dec
         self.static = SbrStatic(dec)
         self.device = torch.device(device)
@@ -448,6 +500,9 @@ class SbrDeviceRunner:
             self.device)
         self._core_ov = torch.zeros((nch, 1024), dtype=torch.float32,
                                     device=self.device)
+        # spec mode: True while the host holds the live core overlap (before
+        # the first spec group, and after fetch_core_overlap handed it back)
+        self._host_ov = True
 
     def _build_stacked_cond(self, nch: int, F: int, per_ch: list) -> dict:
         """Every channel's cond filled straight into (C, ...) stacked numpy
@@ -479,4 +534,461 @@ class SbrDeviceRunner:
         pcm, self._core_ov = SYN.decode_planes(planes, self._core_ov, consts)
         out, self._stacked = device_decode_group(
             self.static, pcm.transpose(0, 1), cond, self._stacked)
-        return torch.round(out).clamp_(-32768, 32767).to(torch.int16)
+        return _pcm16(out)
+
+    def decode_group_multi_lazy_spec(self, specs: np.ndarray, ops: np.ndarray,
+                                     per_ch: list, host_overlap: np.ndarray):
+        """One group with the LC core fused on the device: specs (C, F,
+        1024) float32 prepared spectra, ops (C, F) operator indices,
+        per_ch[c] = (datas, Es, Qs).  ``host_overlap`` (C, 1024) seeds the
+        core overlap on the first spec group and after
+        :meth:`fetch_core_overlap`.  The group is queued on the device;
+        returns a zero-argument function that copies the (C, F*2048) PCM
+        back as int32."""
+        nch, F = specs.shape[:2]
+        cond = cond_to_device(self._build_stacked_cond(nch, F, per_ch),
+                              self.device)
+        if self._host_ov:
+            self._core_ov = torch.from_numpy(
+                np.asarray(host_overlap[:nch], np.float32)).to(self.device)
+        spec_t = torch.from_numpy(np.asarray(specs, np.float32))
+        op_t = torch.from_numpy(np.asarray(ops, np.int64))
+        pcm, self._core_ov = core_imdct_device(
+            spec_t.to(self.device), op_t.to(self.device), self._core_ov)
+        self._host_ov = False
+        out, self._stacked = device_decode_group(self.static, pcm, cond,
+                                                 self._stacked)
+        pcm16 = _pcm16(out)
+        return lambda: pcm16.cpu().numpy().astype(np.int32)
+
+    def fetch_core_overlap(self):
+        """The (C, 1024) core overlap after the last spec group, as numpy,
+        handed back to the host (None when the host already holds it): the
+        caller installs it before a group of the numpy chain, and the next
+        spec group seeds from the host again."""
+        if self._host_ov:
+            return None
+        self._host_ov = True
+        return self._core_ov.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Parametric stereo (HE-AAC v2): hybrid analysis, the decorrelator and mixer
+# scan, hybrid synthesis
+# ---------------------------------------------------------------------------
+
+PsStatic = SJ.PsStatic
+ps_init_state = SJ.ps_init_state
+build_ps_H_slots = SJ.build_ps_H_slots
+
+#: Channels of a PS slot (12 hybrid subbands, then QMF bands 3-63), the first
+#: PS_AP of them with the all-pass chain (the subbands and QMF bands 3-22),
+#: the rest (QMF bands 23-63) with plain delays; power groups and mixing
+#: groups; the widest power group; the all-pass ring depths and the depth of
+#: the long-delay ring.  Fixed in ``csrc/ps_mix.cu``.
+PS_CH, PS_AP, PS_GROUPS, PS_MIX, PS_MAXMEM = 73, 32, 20, 22, 29
+PS_LONG = PS_CH - PS_AP
+PS_LINKS, PS_LNG = (3, 4, 5), 14
+#: One stream's scan carry, as the kernel lays it out (name, shape): the
+#: three power states, the 2-slot delay, the three all-pass rings and the
+#: long delays, each ring oldest slot first.
+PS_CARRY = (("pow", (3, PS_GROUPS)),
+            ("d2_re", (2, PS_AP)), ("d2_im", (2, PS_AP)),
+            *((f"r{d}_{p}", (PS_AP, d)) for d in PS_LINKS
+              for p in ("re", "im")),
+            ("lng_re", (PS_LONG, PS_LNG)), ("lng_im", (PS_LONG, PS_LNG)))
+#: The scan's float32 coefficients: the fractional-delay phase and the
+#: all-pass links' phases per all-pass channel, the decay ramp (1 on the
+#: subbands), the links' decays, the peak decay / smoothing / transient
+#: impact constants and the mixing mask per channel.
+PS_COEF = (("phi_re", (PS_AP,)), ("phi_im", (PS_AP,)),
+           ("ser_re", (PS_AP, 3)), ("ser_im", (PS_AP, 3)),
+           ("dsf", (PS_AP,)), ("dser", (3,)), ("pk_ic_ti", (3,)),
+           ("cmask", (PS_CH,)))
+#: The scan's int32 tables: each power group's channels in increasing order
+#: (-1 pads), their count, and per channel its transient group, its mixing
+#: group and, for the long channels, the read offset in the delay ring.
+PS_IMAP = (("members", (PS_GROUPS, PS_MAXMEM)), ("nmem", (PS_GROUPS,)),
+           ("tgrp", (PS_CH,)), ("mgrp", (PS_CH,)), ("loff", (PS_LONG,)))
+
+
+def _size(layout) -> int:
+    return sum(int(np.prod(shape)) for _, shape in layout)
+
+
+def _split(flat, layout) -> dict:
+    """Views of the last axis of ``flat`` (tensor or array) per (name,
+    shape) of ``layout``."""
+    out, o = {}, 0
+    for name, shape in layout:
+        n = int(np.prod(shape))
+        out[name] = flat[..., o:o + n].reshape(*flat.shape[:-1], *shape)
+        o += n
+    return out
+
+
+_PS_CONSTS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def ps_constants(ps: PsStatic, device) -> dict:
+    """``ps``'s constants as tensors on ``device``, made once: the hybrid
+    analysis FIRs (H8 re / im (13, 8), H2 (13, 2)) and the scan's packed
+    tables ``coef`` (float32, :data:`PS_COEF`) and ``imap`` (int32,
+    :data:`PS_IMAP`)."""
+    per = _PS_CONSTS.setdefault(ps, {})
+    key = str(torch.device(device))
+    if key not in per:
+        members = np.full((PS_GROUPS, PS_MAXMEM), -1, np.int32)
+        for g in range(PS_GROUPS):
+            chans = [*np.nonzero(ps.Psub[g])[0],
+                     *(12 + np.nonzero(ps.Pqmf[g])[0])]
+            members[g, :len(chans)] = chans
+        f32 = np.float32
+        coef = dict(
+            phi_re=np.concatenate([ps.phi_sub.real, ps.phi_qmf.real]),
+            phi_im=np.concatenate([ps.phi_sub.imag, ps.phi_qmf.imag]),
+            ser_re=np.concatenate([ps.phi_ser_sub.real, ps.phi_ser_qmf.real]),
+            ser_im=np.concatenate([ps.phi_ser_sub.imag, ps.phi_ser_qmf.imag]),
+            dsf=np.concatenate([np.ones(12), ps.decay_scale]),
+            dser=ps.decay_ser,
+            pk_ic_ti=[f32(SBR._PS_PEAK_DECAY), f32(SBR._PS_INT_COEFF),
+                      f32(SBR._PS_TRANS_IMPACT)],
+            cmask=ps.chan_mask)
+        imap = dict(members=members, nmem=(members >= 0).sum(1),
+                    tgrp=ps.trans_bin[ps.chan_group], mgrp=ps.chan_group,
+                    loff=ps.long_read_off)
+
+        def pack(parts, layout, dtype):
+            return torch.from_numpy(np.concatenate(
+                [np.asarray(parts[n]).astype(dtype).reshape(-1)
+                 for n, _ in layout])).to(device)
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        per[key] = dict(H8r=t(ps.H8.real), H8i=t(ps.H8.imag),
+                        H2=t(ps.H2.real), coef=pack(coef, PS_COEF, f32),
+                        imap=pack(imap, PS_IMAP, np.int32))
+    return per[key]
+
+
+def _carry_parts(s: dict) -> dict:
+    """One stream's PS state (``ps_init_state``'s 25 arrays) -> the
+    :data:`PS_CARRY` parts, float32 numpy."""
+    def f(k):
+        return np.asarray(s[k], np.float32)
+
+    parts = {"pow": np.stack([f("pd"), f("ppd"), f("pnrg")])}
+    for p in ("re", "im"):
+        parts[f"d2_{p}"] = np.concatenate([f(f"d2s_{p}"), f(f"d2q_{p}")], 1)
+        for d in PS_LINKS:
+            parts[f"r{d}_{p}"] = np.concatenate([f(f"s{d}s_{p}"),
+                                                 f(f"s{d}q_{p}")])
+        parts[f"lng_{p}"] = f(f"lng_{p}")
+    return parts
+
+
+def ps_state_to_device(states: list, device) -> dict:
+    """Per-stream PS states (``ps_init_state``'s 25 arrays, numpy or any
+    array the JAX runner holds) -> the (C, ...) stacked state of
+    :func:`ps_decorrelate_mix` on ``device``: ``carry`` (C, PS_CARRY's
+    size) and the hybrid analysis' ``hyb_hist_re / _im`` (C, 12, 3) and
+    ``dline_re / _im`` (C, 6, 61)."""
+    def stack(rows):
+        return torch.from_numpy(np.stack(rows).astype(np.float32)).to(device)
+
+    out = {"carry": stack([np.concatenate([_carry_parts(s)[n].reshape(-1)
+                                           for n, _ in PS_CARRY])
+                           for s in states])}
+    for k in ("hyb_hist_re", "hyb_hist_im", "dline_re", "dline_im"):
+        out[k] = stack([np.asarray(s[k]) for s in states])
+    return out
+
+
+def ps_state_to_host(state: dict) -> list:
+    """:func:`ps_state_to_device`'s inverse: [per-stream dict of the 25
+    ``ps_init_state`` arrays, float32 numpy]."""
+    carry = state["carry"].cpu().numpy()
+    rest = {k: state[k].cpu().numpy() for k in
+            ("hyb_hist_re", "hyb_hist_im", "dline_re", "dline_im")}
+    out = []
+    for c in range(carry.shape[0]):
+        v = _split(carry[c], PS_CARRY)
+        s = {"pd": v["pow"][0], "ppd": v["pow"][1], "pnrg": v["pow"][2]}
+        for p in ("re", "im"):
+            s[f"d2s_{p}"], s[f"d2q_{p}"] = v[f"d2_{p}"][:, :12], \
+                v[f"d2_{p}"][:, 12:]
+            for d in PS_LINKS:
+                s[f"s{d}s_{p}"], s[f"s{d}q_{p}"] = v[f"r{d}_{p}"][:12], \
+                    v[f"r{d}_{p}"][12:]
+            s[f"lng_{p}"] = v[f"lng_{p}"]
+        s.update({k: a[c] for k, a in rest.items()})
+        out.append({k: np.array(a) for k, a in s.items()})
+    return out
+
+
+def ps_hybrid_analysis(k: dict, Zr, Zi, state: dict):
+    """The PS hybrid analysis of C streams (``ps_decorrelate_mix``'s
+    13-tap FIRs over the slots, as ``torch.matmul``): Zr, Zi (C, S, 64) mid
+    QMF slots, ``k`` :func:`ps_constants`, ``state`` carrying the 12-slot
+    history of QMF bands 0-2 and the 6-slot delay of bands 3-63.  Returns
+    (mid_r, mid_i (C, S, 73): 12 hybrid subbands, then QMF bands 3-63
+    delayed by 6 slots; the new hyb_hist_re / _im and dline_re / _im)."""
+    S = Zr.shape[1]
+    low_r = torch.cat([state["hyb_hist_re"], Zr[..., :3]], dim=1)
+    low_i = torch.cat([state["hyb_hist_im"], Zi[..., :3]], dim=1)
+    win_r = torch.stack([low_r[:, s:s + S] for s in range(13)], dim=2)
+    win_i = torch.stack([low_i[:, s:s + S] for s in range(13)], dim=2)
+    a_r, a_i = win_r[..., 0], win_i[..., 0]                 # (C, S, 13)
+    mm = torch.matmul
+    hyb_r = torch.cat([mm(a_r, k["H8r"]) - mm(a_i, k["H8i"]),
+                       mm(win_r[..., 1], k["H2"]), mm(win_r[..., 2], k["H2"])],
+                      dim=-1)
+    hyb_i = torch.cat([mm(a_r, k["H8i"]) + mm(a_i, k["H8r"]),
+                       mm(win_i[..., 1], k["H2"]), mm(win_i[..., 2], k["H2"])],
+                      dim=-1)
+    # subbands 4 and 5 fold into 3 and 2, then are zeroed
+    for h in (hyb_r, hyb_i):
+        h[..., 3] += h[..., 4]
+        h[..., 2] += h[..., 5]
+        h[..., 4:6] *= 0.0
+    rest_r = torch.cat([state["dline_re"], Zr[..., 3:]], dim=1)
+    rest_i = torch.cat([state["dline_im"], Zi[..., 3:]], dim=1)
+    mid_r = torch.cat([hyb_r, rest_r[:, :S]], dim=2)
+    mid_i = torch.cat([hyb_i, rest_i[:, :S]], dim=2)
+    return (mid_r, mid_i, low_r[:, S:S + 12], low_i[:, S:S + 12],
+            rest_r[:, S:S + 6], rest_i[:, S:S + 6])
+
+
+def ps_hybrid_synthesis(cr, ci):
+    """(C, S, 73) hybrid-domain slots -> (C, S, 64) QMF slots: the
+    subbands of QMF bands 0, 1 and 2 (8, 2 and 2 of them) summed."""
+    def syn(x):
+        return torch.cat([x[..., 0:8].sum(-1, keepdim=True),
+                          x[..., 8:10].sum(-1, keepdim=True),
+                          x[..., 10:12].sum(-1, keepdim=True), x[..., 12:]],
+                         dim=-1)
+
+    return syn(cr), syn(ci)
+
+
+def ps_transients(mr, mi, pw, coef, imap):
+    """The transient factors of :func:`ps_scan_torch`: mr, mi (C, S, 73)
+    mid slots, pw (C, 3, 20) the carried peak decay, smoothed peak
+    difference and smoothed energy.  Per slot the 20 group powers, each a
+    sum of |x|^2 over its members in channel order, drive the three
+    recurrences.  Returns (trans (C, S, 20), the new pw)."""
+    S = mr.shape[1]
+    k = _split(coef, PS_COEF)
+    members = _split(imap, PS_IMAP)["members"].long()
+    pk, ic, ti = k["pk_ic_ti"]
+    e = mr * mr + mi * mi
+    p = e.new_zeros((*mr.shape[:2], PS_GROUPS))
+    for j in range(PS_MAXMEM):
+        col = members[:, j]
+        p = p + torch.where(col >= 0, e[..., col.clamp_min(0)], 0.0)
+    pd, ppd, pnrg = pw.unbind(1)
+    trans = []
+    for t in range(S):
+        pt = p[:, t]
+        pd = torch.maximum(pd * pk, pt)
+        ppd = ppd + ic * (pd - pt - ppd)
+        pnrg = torch.clamp_min(pnrg + ic * (pt - pnrg), 0.0)
+        nrg = pnrg * ti
+        trans.append(torch.where(ppd <= nrg, 1.0,
+                                 nrg / torch.clamp_min(ppd, 1e-30)))
+    return torch.stack(trans, 1), torch.stack([pd, ppd, pnrg], 1)
+
+
+def ps_scan_torch(mr, mi, H, carry, coef, imap):
+    """Plain version of the decorrelator and mixer scan (the step and scan of
+    ``sbr_jax.ps_decorrelate_mix``), in the kernel's order of operations.
+
+    mr, mi (C, S, 73) float32 mid slots (:func:`ps_hybrid_analysis`); H (C,
+    S, 4, 22) float32 mixing matrices per slot (h11, h12, h21, h22 per
+    mixing group); carry (C, n) float32 (:data:`PS_CARRY`); coef and imap
+    the packed tables of :func:`ps_constants`.  Per slot: the transient
+    factor per group (:func:`ps_transients`); per all-pass channel the
+    2-slot delay times
+    its phase, then three serial all-pass links over rings of 3, 4 and 5
+    slots (with the decay ramp, 1 on the subbands); per long channel its
+    delay read from the 14-deep ring; the decorrelated value times its
+    transient factor; the 2x2 mix with the slot's H by mixing group, masked.
+    The powers and transient factors depend only on the input, so they are
+    computed first; then a loop over slots, vectorised over streams and
+    channels.  Returns (Lr, Li, Rr, Ri (C, S, 73), new carry)."""
+    C, S, _ = mr.shape
+    k = _split(coef, PS_COEF)
+    ix = {n: v.long() for n, v in _split(imap, PS_IMAP).items()}
+    st = _split(carry, PS_CARRY)
+    trans, pw = ps_transients(mr, mi, st["pow"], coef, imap)
+    tch = trans[..., ix["tgrp"]]                            # (C, S, 73)
+    hch = H[..., ix["mgrp"]]                                # (C, S, 4, 73)
+    phr, phi, dsf, dser = k["phi_re"], k["phi_im"], k["dsf"], k["dser"]
+    serr, seri, cm = k["ser_re"], k["ser_im"], k["cmask"]
+    d2r, d2i = st["d2_re"], st["d2_im"]
+    rings = [[st[f"r{d}_re"], st[f"r{d}_im"]] for d in PS_LINKS]
+    lr, li = st["lng_re"], st["lng_im"]
+    loff = ix["loff"][None, :, None].expand(C, -1, 1)
+    outs = []
+    for t in range(S):
+        xr, xi = mr[:, t], mi[:, t]
+        ar, ai = d2r[:, 0], d2i[:, 0]
+        r0r, r0i = ar * phr - ai * phi, ar * phi + ai * phr
+        d2r = torch.stack([d2r[:, 1], xr[:, :PS_AP]], 1)
+        d2i = torch.stack([d2i[:, 1], xi[:, :PS_AP]], 1)
+        res_r, res_i = dsf * r0r, dsf * r0i
+        for m, ring in enumerate(rings):
+            sr, si = ring[0][..., 0], ring[1][..., 0]
+            tr = sr * serr[:, m] - si * seri[:, m]
+            tq = sr * seri[:, m] + si * serr[:, m]
+            tr = tr - dser[m] * res_r
+            tq = tq - dser[m] * res_i
+            res_r, res_i = dsf * tr, dsf * tq
+            ring[0] = torch.cat([ring[0][..., 1:],
+                                 (r0r + dser[m] * res_r)[..., None]], -1)
+            ring[1] = torch.cat([ring[1][..., 1:],
+                                 (r0i + dser[m] * res_i)[..., None]], -1)
+            r0r, r0i = tr, tq
+        dl_r = torch.gather(lr, 2, loff)[..., 0]
+        dl_i = torch.gather(li, 2, loff)[..., 0]
+        lr = torch.cat([lr[..., 1:], xr[:, PS_AP:, None]], -1)
+        li = torch.cat([li[..., 1:], xi[:, PS_AP:, None]], -1)
+        dr = torch.cat([r0r, dl_r], 1) * tch[:, t]
+        di = torch.cat([r0i, dl_i], 1) * tch[:, t]
+        h11, h12, h21, h22 = hch[:, t].unbind(1)
+        outs.append(torch.stack([(h11 * xr + h21 * dr) * cm,
+                                 (h11 * xi + h21 * di) * cm,
+                                 (h12 * xr + h22 * dr) * cm,
+                                 (h12 * xi + h22 * di) * cm]))
+    Lr, Li, Rr, Ri = torch.stack(outs, 2).unbind(0)
+    parts = dict(pow=pw, d2_re=d2r, d2_im=d2i, lng_re=lr, lng_im=li)
+    for d, (re, im) in zip(PS_LINKS, rings):
+        parts[f"r{d}_re"], parts[f"r{d}_im"] = re, im
+    new_carry = torch.cat([parts[n].reshape(C, -1) for n, _ in PS_CARRY], 1)
+    return Lr, Li, Rr, Ri, new_carry
+
+
+def ps_scan(mr, mi, H, carry, coef, imap):
+    """The decorrelator and mixer scan (see :func:`ps_scan_torch`): the
+    ``csrc/ps_mix.cu`` kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    dev = mr.device
+    if dev.type == "cuda":
+        return _kernels.ps_mix(mr, mi, H, carry, coef, imap)
+    if dev.type == "cpu":
+        return ps_scan_torch(mr, mi, H, carry, coef, imap)
+    raise ValueError(f"ps_scan: no kernel for device {dev}")
+
+
+def ps_decorrelate_mix(ps: PsStatic, Zr, Zi, H_slots, state: dict):
+    """The PS stage of C streams (``sbr_jax.ps_decorrelate_mix``): Zr, Zi
+    (C, S, 64) mid QMF slots, H_slots (C, S, 4, 22) float32 per-slot mixing
+    matrices (``build_ps_H_slots``), ``state`` from
+    :func:`ps_state_to_device`.  Returns (XLr, XLi, XRr, XRi (C, S, 64),
+    new_state)."""
+    k = ps_constants(ps, Zr.device)
+    mid_r, mid_i, hr, hi, dr, di = ps_hybrid_analysis(k, Zr, Zi, state)
+    Lr, Li, Rr, Ri, carry = ps_scan(mid_r.contiguous(), mid_i.contiguous(),
+                                    H_slots.contiguous(), state["carry"],
+                                    k["coef"], k["imap"])
+    return (*ps_hybrid_synthesis(Lr, Li), *ps_hybrid_synthesis(Rr, Ri),
+            {"carry": carry, "hyb_hist_re": hr, "hyb_hist_im": hi,
+             "dline_re": dr, "dline_im": di})
+
+
+def device_decode_group_ps(static: SbrStatic, ps: PsStatic, pcm, cond: dict,
+                           state: dict, ps_state: dict, syn_state_r, H_slots):
+    """HE-AAC v2 group decode of C mono cores (``sbr_jax.
+    device_decode_group_ps``): the SBR reconstruction, the PS stage and two
+    synthesis QMFs (the left one on ``state``'s syn_state).  pcm (C, F,
+    1024); syn_state_r (C, 704) the right synthesis tail; H_slots (C, F*32,
+    4, 22).  Returns (out (C, 2, F*2048) float32, new_state, new_ps_state,
+    new_syn_state_r)."""
+    (Zr, Zi), new_state = device_decode_qmf(static, pcm, cond, state)
+    XLr, XLi, XRr, XRi, new_ps = ps_decorrelate_mix(ps, Zr, Zi, H_slots,
+                                                    ps_state)
+    outL, new_state["syn_state"] = synthesize_slots(static, XLr, XLi,
+                                                    state["syn_state"])
+    outR, syn_r = synthesize_slots(static, XRr, XRi, syn_state_r)
+    return torch.stack([outL, outR], 1), new_state, new_ps, syn_r
+
+
+class SbrPsDeviceRunner:
+    """The HE-AAC v2 runner of ``sbr_jax.SbrPsDeviceRunner`` for one stream
+    (batch axis 1): the mono core's SBR reconstruction and the parametric
+    stereo stage of whole frame groups on ``device``, with every state
+    kept there across groups.  The cond build and the mixing matrices
+    (``build_ps_H_slots``, over the parameter state of ``pdec_host``) stay
+    on the host."""
+
+    def __init__(self, dec: SBR.SbrDecoder, *, device="cuda"):
+        self.dec = dec
+        self.static = SbrStatic(dec)
+        self.ps_static = PsStatic()
+        self.device = torch.device(device)
+        self.state_host = SBR.SbrChannelState()
+        self.state_dev = state_to_device([device_init_state(self.static.M)],
+                                         self.device)
+        self.ps_state = ps_state_to_device([ps_init_state()], self.device)
+        self.syn_state_r = torch.zeros((1, 704), dtype=torch.float32,
+                                       device=self.device)
+        self.pdec_host = SBR.PsDecoder()
+        self.first = True
+        self._core_ov = None          # (1, 1024) core overlap, spec mode
+
+    def _dispatch(self, pcm, datas: list, Es: list, Qs: list,
+                  ps_list: list):
+        cond = build_frame_cond(self.dec, self.state_host, self.static,
+                                datas, Es, Qs, self.first)
+        self.first = False
+        H = build_ps_H_slots(self.pdec_host, ps_list, NOUT)
+        cd = cond_to_device({k: v[None] for k, v in vars(cond).items()},
+                            self.device)
+        out, self.state_dev, self.ps_state, self.syn_state_r = \
+            device_decode_group_ps(self.static, self.ps_static, pcm, cd,
+                                   self.state_dev, self.ps_state,
+                                   self.syn_state_r,
+                                   torch.from_numpy(H[None]).to(self.device))
+        pcm16 = _pcm16(out[0])
+        return lambda: pcm16.cpu().numpy()
+
+    def decode_group_lazy(self, pcm_frames: np.ndarray, datas: list,
+                          Es: list, Qs: list, ps_list: list):
+        """One group from core PCM (F, 1024), queued on the device; per
+        frame its SBR channel data, envelope and noise levels and PsData
+        (or None, which holds the previous parameters).  Returns a
+        zero-argument function that copies the (2, F*2048) int16 PCM
+        back."""
+        pcm = torch.from_numpy(np.asarray(pcm_frames, np.float32)[None])
+        return self._dispatch(pcm.to(self.device), datas, Es, Qs, ps_list)
+
+    def decode_group(self, pcm_frames: np.ndarray, datas: list, Es: list,
+                     Qs: list, ps_list: list) -> np.ndarray:
+        return self.decode_group_lazy(pcm_frames, datas, Es, Qs, ps_list)()
+
+    def decode_group_lazy_spec(self, specs: np.ndarray, ops: np.ndarray,
+                               datas: list, Es: list, Qs: list,
+                               ps_list: list, host_overlap: np.ndarray):
+        """:meth:`decode_group_lazy` with the mono LC core fused on the
+        device: specs (F, 1024) float32 prepared spectra, ops (F,) operator
+        indices; host_overlap (1024,) seeds the core overlap on the first
+        spec group and after :meth:`fetch_core_overlap`."""
+        if self._core_ov is None:
+            self._core_ov = torch.from_numpy(
+                np.asarray(host_overlap, np.float32)[None]).to(self.device)
+        spec_t = torch.from_numpy(np.asarray(specs, np.float32)[None])
+        op_t = torch.from_numpy(np.asarray(ops, np.int64)[None])
+        pcm, self._core_ov = core_imdct_device(
+            spec_t.to(self.device), op_t.to(self.device), self._core_ov)
+        return self._dispatch(pcm, datas, Es, Qs, ps_list)
+
+    def fetch_core_overlap(self):
+        """The (1024,) core overlap after the last spec group, as numpy
+        (None if there is none), handed back to the host: the next spec
+        group seeds from the host again."""
+        if self._core_ov is None:
+            return None
+        ov = self._core_ov[0].cpu().numpy()
+        self._core_ov = None
+        return ov

@@ -3,15 +3,18 @@ tensors.
 
 Port of ``ohpipeline_tpu.codecs.aac.synthesis``.  That module imports JAX at
 its top, so its host half is carried over here as the same numpy code:
-the windows and IMDCT operators, ``window_bank``, ``sf_expand_matrix``, the
-per-config layouts and ``prepare_group`` (which prepares the exception rows
-both packages ship as a float32 side plane), and the float64 references
-``apply_tns_zz_reference`` / ``decode_chunk_zz_reference`` that gate the
-device program.
+the windows and IMDCT operators, ``window_bank``, ``operator_bank``,
+``sf_expand_matrix``, the per-config layouts and ``prepare_group`` (which
+prepares the exception rows both packages ship as a float32 side plane), the
+per-frame prep of the object path (``dequantize``, ``apply_spectral_tools``,
+``apply_tns``), and the float64 references ``apply_tns_zz_reference`` /
+``decode_chunk_zz_reference`` that gate the device program.
 
 The device half is ``decode_chunk_zz`` (the zigzag-nibble wire: elementwise
 front end, TNS, magnitude-split IMDCT matmuls, windows and a shifted-slice
-overlap-add), ``filterbank_fast`` and ``dequant_filterbank``.  The one
+overlap-add), ``filterbank_fast``, ``dequant_filterbank`` and ``filterbank``
+(the object path's operator-bank products, with the overlap scan as a
+shifted slice).  The one
 sequential program among them, the TNS all-pole scan along frequency, runs
 as the hand-written kernel ``csrc/tns.cu`` on CUDA tensors and as its plain
 version :func:`tns_scan_torch` on CPU tensors.  Matrix products stay
@@ -112,6 +115,78 @@ def window_bank():
                 SW[ls * 2 + rs, w] = np.concatenate(
                     [wl_first if w == 0 else wl, wr])
     return W, SW
+
+
+@functools.lru_cache(maxsize=None)
+def _frame_operators():
+    """Per (window_mode, left_shape, right_shape): two (1024, 1024) f32
+    linear operators A, Bop with
+
+        time_first_half  = spec @ A      (added to the carried overlap)
+        next_overlap     = spec @ Bop
+
+    folding the IMDCT, the windows and the short windows' internal overlap
+    into two dense products, uniform across all window sequences."""
+    M_long = _imdct_matrix(2048)      # (1024, 2048)
+    M_short = _imdct_matrix(256)      # (128, 256)
+    ops = {}
+    for mode in (BS.ONLY_LONG, BS.LONG_START, EIGHT_SHORT, BS.LONG_STOP):
+        for ls in (0, 1):
+            for rs in (0, 1):
+                full = np.zeros((1024, 2048), np.float32)
+                if mode == EIGHT_SHORT:
+                    wl, wr = _short_halves(rs)
+                    wl_first, _ = _short_halves(ls)
+                    for w in range(8):
+                        off = 448 + w * 128
+                        win = np.concatenate(
+                            [wl_first if w == 0 else wl, wr])
+                        contrib = (M_short * win[None, :]).astype(np.float32)
+                        full[w * 128:(w + 1) * 128, off:off + 256] += contrib
+                else:
+                    wl_l, _ = _long_halves(ls)
+                    if mode == BS.ONLY_LONG:
+                        win = np.concatenate([wl_l, _long_halves(rs)[1]])
+                    elif mode == BS.LONG_START:
+                        _, swr = _short_halves(rs)
+                        right = np.concatenate(
+                            [np.ones(448), swr, np.zeros(448)])
+                        win = np.concatenate([wl_l, right])
+                    else:  # LONG_STOP
+                        swl, _ = _short_halves(ls)
+                        left = np.concatenate(
+                            [np.zeros(448), swl, np.ones(448)])
+                        win = np.concatenate([left, _long_halves(rs)[1]])
+                    full = (M_long * win[None, :]).astype(np.float32)
+                ops[(mode, ls, rs)] = (
+                    np.ascontiguousarray(full[:, :1024]),
+                    np.ascontiguousarray(full[:, 1024:]))
+    return ops
+
+
+def operator_bank() -> tuple[np.ndarray, np.ndarray]:
+    """Stacked (16, 1024, 1024) A and B operator banks indexed by
+    mode*4 + left_shape*2 + right_shape."""
+    ops = _frame_operators()
+    A = np.stack([ops[(m, lft, r)][0] for m in range(4) for lft in (0, 1)
+                  for r in (0, 1)])
+    B = np.stack([ops[(m, lft, r)][1] for m in range(4) for lft in (0, 1)
+                  for r in (0, 1)])
+    return A, B
+
+
+_OPERATOR_BANKS: dict = {}
+
+
+def operator_bank_constants(*, device) -> tuple:
+    """:func:`operator_bank` as float32 tensors on ``device`` (64 MB each),
+    uploaded once per device: the last two arguments of
+    :func:`filterbank`."""
+    key = str(torch.device(device))
+    if key not in _OPERATOR_BANKS:
+        _OPERATOR_BANKS[key] = tuple(torch.from_numpy(a).to(device)
+                                     for a in operator_bank())
+    return _OPERATOR_BANKS[key]
 
 
 def sf_expand_matrix(rate_index: int) -> np.ndarray:
@@ -362,6 +437,29 @@ def filterbank_fast(spec_t, opidx_t, overlap, M_long, M_short, W, SW):
                         opidx_t.reshape(-1).long(), M_long, M_short, W, SW,
                         split=False)
     return _overlap_add(x.reshape(Tn, B, 2048), overlap)
+
+
+def filterbank(spec_t, opidx_t, overlap, A_bank, B_bank):
+    """Filterbank of the per-frame object path through the operator banks
+    (:func:`operator_bank_constants`): spec_t (T, B, 1024) float32 spectra,
+    opidx_t (T, B) operator indices in [0, 16), overlap (B, 1024).  Each
+    row's first half is ``spec @ A[op]`` plus the carried overlap and its
+    second half ``spec @ B[op]`` is carried on: one product per operator
+    the group uses, then the overlap-add as a shifted slice (the JAX
+    package's lax.scan carry).  Returns (pcm (T, B, 1024), new_overlap)."""
+    Tn, B, _ = spec_t.shape
+    flat = spec_t.reshape(Tn * B, 1024)
+    ops = opidx_t.reshape(-1)
+    first = torch.empty_like(flat)
+    second = torch.empty_like(flat)
+    for op in torch.unique(ops).tolist():
+        rows = (ops == op).nonzero()[:, 0]
+        first[rows] = torch.matmul(flat[rows], A_bank[op])
+        second[rows] = torch.matmul(flat[rows], B_bank[op])
+    first = first.reshape(Tn, B, 1024)
+    second = second.reshape(Tn, B, 1024)
+    prev = torch.cat([overlap[None], second[:-1]], dim=0)
+    return first + prev, second[-1]
 
 
 def dequant_filterbank(quant, sf, coded, cfg_idx, perm_tab, band_tab,
@@ -695,6 +793,153 @@ def _pns_noise(row: int, pos: int, n: int) -> np.ndarray:
     by energy.)"""
     return np.random.default_rng(
         (0x9A5 << 32) ^ (row * 2048 + pos)).standard_normal(n)
+
+
+# ---------------------------------------------------------------------------
+# per-frame host prep of the object path (decode_frames, the numpy SBR
+# chain): numpy, as the JAX package's
+# ---------------------------------------------------------------------------
+
+def dequantize(ch: "BS.ChannelData", rate_index: int) -> np.ndarray:
+    """Quantized ints -> scaled spectrum, deinterleaved to window order
+    (8x128 flattened for short frames)."""
+    ics = ch.ics
+    offsets = T.sfb_offsets(rate_index, ics.short)
+    q = ch.quant.astype(np.int64)
+    mag = np.where(np.abs(q) < 8192, _POW43[np.minimum(np.abs(q), 8191)],
+                   np.abs(q).astype(np.float64) ** (4.0 / 3.0))
+    spec_tx = np.sign(q) * mag
+    out = np.zeros(1024)
+    groups = ics.window_groups()
+    if not ics.short:
+        for k in range(ics.max_sfb):
+            c = ch.band_cb[0, k]
+            if c == 0 or c == 12 or c >= T.NOISE_CB:
+                continue
+            a, b = int(offsets[k]), int(offsets[k + 1])
+            gain = 2.0 ** (0.25 * (ch.scalefactors[0, k] - T.SF_OFFSET))
+            out[a:b] = spec_tx[a:b] * gain
+        return out
+    # short: transmission order [group][sfb][win][bins] -> [win][bins]
+    pos = 0
+    win_base = 0
+    for g, wins in enumerate(groups):
+        for k in range(ics.max_sfb):
+            width = int(offsets[k + 1] - offsets[k])
+            c = ch.band_cb[g, k]
+            gain = 2.0 ** (0.25 * (ch.scalefactors[g, k] - T.SF_OFFSET))
+            for w in range(wins):
+                if not (c == 0 or c == 12 or c >= T.NOISE_CB):
+                    a = (win_base + w) * 128 + int(offsets[k])
+                    out[a:a + width] = spec_tx[pos:pos + width] * gain
+                pos += width
+        win_base += wins
+        pos = win_base * 128         # groups start at full window strides
+    return out
+
+
+def apply_spectral_tools(frame: "BS.FrameData",
+                         specs: list[np.ndarray]) -> None:
+    """In-place M/S, intensity, PNS over the dequantized spectra.
+
+    Order per ISO 14496-3 4.6.7-4.6.9: PNS -> M/S -> intensity.
+    """
+    rate_index = frame.rate_index
+    # PNS per channel
+    for ch, spec in zip(frame.channels, specs):
+        _apply_pns(ch, spec, rate_index)
+    if len(frame.channels) != 2:
+        return
+    l_ch, r_ch = frame.channels
+    l, r = specs
+    ics = l_ch.ics
+    offsets = T.sfb_offsets(rate_index, ics.short)
+    groups = ics.window_groups()
+    mask = frame.ms_mask
+    win_base = 0
+    for g, wins in enumerate(groups):
+        for k in range(ics.max_sfb):
+            a0, b0 = int(offsets[k]), int(offsets[k + 1])
+            cb_r = r_ch.band_cb[g, k] if r_ch.band_cb is not None else 0
+            for w in range(wins):
+                base = (win_base + w) * 128 if ics.short else 0
+                a, b = base + a0, base + b0
+                if cb_r in (T.INTENSITY_CB, T.INTENSITY_CB2):
+                    sign = 1.0 if cb_r == T.INTENSITY_CB else -1.0
+                    if mask is not None and mask[g, k]:
+                        sign = -sign
+                    scale = sign * 0.5 ** (0.25 * r_ch.scalefactors[g, k])
+                    r[a:b] = l[a:b] * scale
+                elif mask is not None and mask[g, k] \
+                        and cb_r not in (T.NOISE_CB,):
+                    mid = l[a:b].copy()
+                    side = r[a:b].copy()
+                    l[a:b] = mid + side
+                    r[a:b] = mid - side
+        win_base += wins
+
+
+def _apply_pns(ch: "BS.ChannelData", spec: np.ndarray,
+               rate_index: int) -> None:
+    ics = ch.ics
+    if ch.band_cb is None or not (ch.band_cb == T.NOISE_CB).any():
+        return
+    offsets = T.sfb_offsets(rate_index, ics.short)
+    groups = ics.window_groups()
+    win_base = 0
+    for g, wins in enumerate(groups):
+        for k in range(ics.max_sfb):
+            if ch.band_cb[g, k] != T.NOISE_CB:
+                continue
+            a0, b0 = int(offsets[k]), int(offsets[k + 1])
+            energy = 2.0 ** (0.25 * ch.scalefactors[g, k])
+            for w in range(wins):
+                base = (win_base + w) * 128 if ics.short else 0
+                n = _pns_noise(win_base + w, base + a0, b0 - a0)
+                n *= energy / np.sqrt(np.mean(n * n) + 1e-30)
+                spec[base + a0:base + b0] = n
+        win_base += wins
+
+
+def apply_tns(ch: "BS.ChannelData", spec: np.ndarray,
+              rate_index: int) -> None:
+    """TNS synthesis filtering (ISO 14496-3 4.6.9): all-pole filter across
+    spectral bins per window."""
+    if ch.tns is None:
+        return
+    ics = ch.ics
+    offsets = T.sfb_offsets(rate_index, ics.short)
+    nbands = len(offsets) - 1
+    # TNS max band limits (ISO Table 4.139-ish); clamp to max_sfb range
+    for w, filters in enumerate(ch.tns.filters):
+        base = w * 128 if ics.short else 0
+        bottom = nbands
+        for (length, order, direction, coeffs) in filters:
+            top = bottom
+            bottom = max(top - length, 0)
+            if order == 0:
+                continue
+            start = int(offsets[min(bottom, nbands)])
+            end = int(offsets[min(top, nbands)])
+            end = min(end, 128 if ics.short else 1024)
+            if end <= start:
+                continue
+            a = np.asarray(coeffs)
+            seg = spec[base + start:base + end]
+            if direction:
+                seg = seg[::-1]
+            # lattice-to-direct form conversion
+            lpc = _lattice_to_lpc(a)
+            state = np.zeros(len(lpc))
+            for i in range(len(seg)):
+                y = seg[i] - np.dot(lpc, state)
+                state = np.roll(state, 1)
+                state[0] = y
+                seg[i] = y
+            if direction:
+                spec[base + start:base + end] = seg[::-1]
+            else:
+                spec[base + start:base + end] = seg
 
 
 def _lattice_to_lpc(refl: np.ndarray) -> np.ndarray:

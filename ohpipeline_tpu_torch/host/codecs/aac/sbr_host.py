@@ -4,6 +4,10 @@ Per-header static conditioning (``SbrStatic``), the fresh per-channel device
 state (``device_init_state``) and the compact cond wire of a group
 (``SbrFrameCond``, filled by ``build_frame_cond``, which advances the
 per-channel counters of the numpy chain in ``sbr.py`` as that chain does).
+For HE-AAC v2 (parametric stereo): the ROM-derived decorrelator and mixer
+conditioning (``PsStatic``), the fresh PS state (``ps_init_state``) and the
+per-slot mixing matrices of a group (``build_ps_H_slots``, which advances
+the parameter state of a ``PsDecoder``).
 The device half is ported in ``ohpipeline_tpu_torch.codecs.aac.sbr``.
 """
 
@@ -258,3 +262,141 @@ def build_frame_cond(dec: "SBR.SbrDecoder", st: "SBR.SbrChannelState",
         if last_processed >= 0:
             cond.last_env[f, last_processed] = 1.0
     return cond
+
+
+class PsStatic:
+    """Static decorrelator/mixer conditioning built from the PS ROM
+    tables (sbr.py PsDecoder constants)."""
+
+    def __init__(self):
+        T = SBR.tables()
+        b20 = list(SBR._PS_GROUP_BORDERS20)
+        b2g = list(SBR._PS_BINS2GROUP20)
+        self.phi_sub = (T["ps_aaFractDelayPhaseFactorReSubQmf20"]
+                        + 1j * T["ps_aaFractDelayPhaseFactorImSubQmf20"])
+        phi_qmf = (T["ps_aaFractDelayPhaseFactorReQmf"]
+                   + 1j * T["ps_aaFractDelayPhaseFactorImQmf"])
+        self.phi_qmf = phi_qmf[3:23]                       # sb 3..22
+        self.phi_ser_sub = (
+            T["ps_aaFractDelayPhaseFactorSerReSubQmf20"]
+            + 1j * T["ps_aaFractDelayPhaseFactorSerImSubQmf20"]
+        ).reshape(12, 3)
+        self.phi_ser_qmf = (
+            T["ps_aaFractDelayPhaseFactorSerReQmf"]
+            + 1j * T["ps_aaFractDelayPhaseFactorSerImQmf"]
+        ).reshape(64, 3)[3:23]
+        self.decay_ser = T["ps_aAllpassLinkDecaySer"].astype(np.float32)
+        self.decay_scale = T["ps_decayScaleFactTable"][3:23] \
+            .astype(np.float32)
+        dl = T["ps_delayIndexQmf"].astype(int)
+        # per-band ring lengths for QMF sb 23..63 (the table is indexed
+        # by absolute sb); read offset in the rolled 14-deep buffer
+        self.long_read_off = (14 - dl[23:64]).astype(np.int32)
+        # power mapping (20, 12) over |hyb|^2 and (20, 61) over |qmf|^2
+        Psub = np.zeros((20, 12), np.float32)
+        for tgt, srcs in enumerate([(0, 7), (1, 6), (2,), (3,), (9,),
+                                    (8,), (10,), (11,)]):
+            for s in srcs:
+                Psub[tgt, s] = 1.0
+        Pqmf = np.zeros((20, 61), np.float32)
+        for bin_ in range(8, 20):
+            lo, hi = b20[bin_ + 2], b20[bin_ + 3]
+            Pqmf[bin_, lo - 3:hi - 3] = 1.0
+        self.Psub, self.Pqmf = Psub, Pqmf
+        # transient-bin / mixing-group per channel (73 = 12 hyb + 61)
+        grp = np.zeros(73, np.int32)
+        mask = np.zeros(73, np.float32)
+        for gr in range(10):
+            sb = b20[gr]
+            grp[sb] = gr
+            mask[sb] = 1.0
+        for gr in range(10, 22):
+            for sb in range(b20[gr], b20[gr + 1]):
+                grp[12 + sb - 3] = gr
+                mask[12 + sb - 3] = 1.0
+        self.chan_group = grp
+        self.chan_mask = mask
+        self.trans_bin = np.asarray(b2g, np.int32)         # (22,)
+        # hybrid analysis kernels (13-slot FIRs)
+        n = np.arange(13)[:, None]
+        q8 = np.arange(8)[None, :]
+        self.H8 = (SBR._PS_G8[:, None]
+                   * np.exp(1j * 2.0 * np.pi / 8.0 * (q8 + 0.5)
+                            * (6 - n))).astype(np.complex64)
+        q2 = np.arange(2)[None, :]
+        self.H2 = (SBR._PS_G2[:, None]
+                   * np.cos(np.pi * q2 * (6 - n))).astype(np.complex64)
+
+
+def ps_init_state():
+    z = np.zeros
+    c = lambda *s: (z(s, np.float32), z(s, np.float32))
+    st = {"pd": z(20, np.float32), "ppd": z(20, np.float32),
+          "pnrg": z(20, np.float32)}
+    for nm, shape in (("d2s", (2, 12)), ("d2q", (2, 20)),
+                      ("s3s", (12, 3)), ("s4s", (12, 4)),
+                      ("s5s", (12, 5)), ("s3q", (20, 3)),
+                      ("s4q", (20, 4)), ("s5q", (20, 5)),
+                      ("lng", (41, 14))):
+        st[nm + "_re"], st[nm + "_im"] = c(*shape)
+    st["hyb_hist_re"] = z((12, 3), np.float32)
+    st["hyb_hist_im"] = z((12, 3), np.float32)
+    st["dline_re"] = z((6, 61), np.float32)
+    st["dline_im"] = z((6, 61), np.float32)
+    return st
+
+
+def build_ps_H_slots(pdec, ps_datas: list, nsl: int = 32) -> np.ndarray:
+    """Host mirror of PsDecoder.process()'s mixing-matrix evolution for
+    a group: decodes IID/ICC with the carried delta state, interpolates
+    the type-A rotation matrices per slot.  ``pdec`` is a numpy
+    SBR.PsDecoder used ONLY for its parameter state (prev_iid/prev_icc,
+    H carry, last_ps, the 6-slot H delay); its DSP is never run here.
+
+    The H timeline rides the hybrid path's 6-slot group delay through
+    ``pdec._h_delay``, which ``PsDecoder.__init__`` seeds with the
+    identity split; a decoder without it raises ``ValueError`` (the
+    timeline is not seeded from the group's first matrix)."""
+    q = getattr(pdec, "_h_delay", None)
+    if q is None or len(q) < 6:
+        raise ValueError("build_ps_H_slots needs a PsDecoder with its "
+                         "6-slot H delay (_h_delay)")
+    F = len(ps_datas)
+    H_slots = np.zeros((F * nsl, 4, 22), np.float32)
+    for f, ps in enumerate(ps_datas):
+        if ps is None:
+            ps = SBR.PsData(header_valid=True,
+                            enable_iid=pdec.last_ps.enable_iid,
+                            mode_iid=pdec.last_ps.mode_iid,
+                            enable_icc=pdec.last_ps.enable_icc,
+                            mode_icc=pdec.last_ps.mode_icc,
+                            frame_class=0, n_env=0)
+        pdec.last_ps = ps
+        iid_rows, icc_rows, pdec.prev_iid, pdec.prev_icc = \
+            SBR.decode_ps_indices(ps, pdec.prev_iid, pdec.prev_icc)
+        fine = ps.mode_iid > 2
+        if (ps.mode_iid % 3) == 2:
+            iid_rows = [SBR._ps_map34_to_20(SBR._pad34(r))
+                        for r in iid_rows]
+        if (ps.mode_icc % 3) == 2:
+            icc_rows = [SBR._ps_map34_to_20(SBR._pad34(r))
+                        for r in icc_rows]
+        n_env = len(iid_rows)
+        borders = SBR.PsDecoder._env_borders(ps, n_env, nsl)
+        for env in range(n_env):
+            t0, t1 = borders[env], borders[env + 1]
+            if t1 <= t0:
+                continue
+            h_tgt = pdec._group_matrices(iid_rows[env], icc_rows[env],
+                                         fine)
+            dH = (h_tgt - pdec.H) / (t1 - t0)
+            H = pdec.H
+            for sl in range(t0, t1):
+                H = H + dH
+                H_slots[f * nsl + sl] = H
+            pdec.H = h_tgt
+    # the 6 carried slots lead, and the group's last 6 are carried on
+    carry = np.stack([q[i] for i in range(6)]).astype(np.float32)
+    for i in range(6):
+        q[i] = H_slots[F * nsl - 6 + i].astype(np.float64)
+    return np.concatenate([carry, H_slots[:-6]], axis=0)

@@ -1,14 +1,22 @@
-"""Stream readers and codec errors of the port's host code.
+"""Stream readers, codec errors and the codec plug-in model of the port's
+host code.
 
 The part of the JAX package's ``codecs/base.py`` that ``containers/ogg.py``,
-``codecs/opus/celt.py`` and ``codecs/opus/packet.py`` reach: the errors and
-the byte-stream readers.  The codec plug-in classes are not copied.
+``codecs/opus/celt.py``, ``codecs/opus/packet.py`` and the AAC plug-in
+(``ohpipeline_tpu_torch.codecs.aac.CodecAacAdts``) reach: the errors, the
+byte-stream readers, ``DecodedBatch`` and ``CodecBase``.  The registry is
+not copied.
 """
 
 from __future__ import annotations
 
 import abc
-from typing import Optional
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+
+from ..core.streaminfo import PcmStreamInfo
 
 
 class EndOfStream(Exception):
@@ -76,3 +84,51 @@ class BufferReader(StreamReader):
             return False
         self._pos = pos
         return True
+
+
+@dataclass(slots=True)
+class DecodedBatch:
+    """One `process()` step's output.
+
+    Either direct samples (`samples` as (channels, n) int32 native range) or
+    a deferred device computation: `defer` is a callable executed at batch
+    time returning the samples (used by codecs whose synthesis runs on
+    device so multiple streams' work can be coalesced).
+    `track_offset_samples` is the absolute sample index of the first sample.
+    """
+    info: PcmStreamInfo
+    samples: Optional[np.ndarray] = None
+    defer: Optional[Callable[[], np.ndarray]] = None
+    track_offset_samples: int = 0
+
+    def resolve(self) -> np.ndarray:
+        if self.samples is not None:
+            return self.samples
+        return self.defer()
+
+
+class CodecBase(abc.ABC):
+    """A codec plug-in (reference CodecBase, CodecController.h:272)."""
+
+    #: Sorted ascending at registration — cheap recognisers run first
+    #: (reference RecognitionComplexity).
+    recognition_cost: int = 0
+    name: str = "?"
+    #: Mime types to advertise (IMimeTypeList).
+    mime_types: Sequence[str] = ()
+
+    @abc.abstractmethod
+    def recognise(self, header: bytes) -> bool:
+        """True if `header` (first bytes of the stream) looks like ours."""
+
+    @abc.abstractmethod
+    def stream_initialise(self, reader: StreamReader) -> PcmStreamInfo:
+        ...
+
+    @abc.abstractmethod
+    def process(self, reader: StreamReader) -> DecodedBatch:
+        """Decode the next chunk or raise EndOfStream."""
+
+    def try_seek(self, sample: int) -> Optional[int]:
+        """Sample index -> byte position, or None if unseekable."""
+        return None

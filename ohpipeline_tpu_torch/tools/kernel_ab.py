@@ -5,13 +5,15 @@
 Each OTHER is a directory holding another version's
 ``ohpipeline_tpu_torch/csrc`` (for example the parent commit's, unpacked
 with ``git archive``, or a patched copy of this tree's).  Its ``lpc.cu``,
-``rice.cu``, ``tns.cu``, ``sbr_env.cu`` and ``celt_comb.cu`` are built with
-nvcc for sm_90a into ``OTHER/_ab/`` and loaded with ctypes.  Each keeps its C entry
-point, and where the argument lists differ each tree is fed its own form: a ``sbr_env.cu`` with ``ohp_sbr_env_map``
-takes the compact arguments (noise and sine made in the kernel from the
-counters), one with ``ohp_sbr_env_scan`` the noise and sine planes made
-beforehand by ``codecs.aac.sbr.plane_args``.  A version is named by its
-directory; this tree's own kernels are the package's build
+``rice.cu``, ``tns.cu``, ``sbr_env.cu``, ``celt_comb.cu`` and ``ps_mix.cu``
+(those of them it has: a tree from before a kernel was ported is compared
+on the others) are built with nvcc for sm_90a into ``OTHER/_ab/`` and
+loaded with ctypes.  Each keeps its C entry point, and where the argument
+lists differ each tree is fed its own form: a ``sbr_env.cu`` with
+``ohp_sbr_env_map`` takes the compact arguments (noise and sine made in the
+kernel from the counters), one with ``ohp_sbr_env_scan`` the noise and sine
+planes made beforehand by ``codecs.aac.sbr.plane_args``.  A version is
+named by its directory; this tree's own kernels are the package's build
 (``_kernels.library()``), named ``this``.
 
 Shapes, as ``chip_smoke.py`` makes them: LPC on the 1152 x 4096 synthetic
@@ -23,11 +25,14 @@ serving group's TnsPool planes, on the 1024-row worst case and on the
 group's row with the longest run alone; the SBR frame scan on the first
 HE-AAC serving group and the worst cases at 24 and 40 bins; the CELT comb on
 the first CELT serving group, on the worst case and on the group's first row
-alone.  A few rows alone time the chain of one row plus a launch: the chain
-floor.  Every version's output is held to this tree's (LPC, rice, SBR and
-CELT bit for bit, TNS within 1e-5 of each row's peak); then the versions are
-timed in turns, each and then each again in reverse order, with
-``chip_smoke.kernel_ms`` (REPS launches in one CUDA graph).  Prints one line
+alone; the PS decorrelator scan on the first PS group of ``ps_content``'s
+stream 0 (one block, S = 3072), on ``ps_mix_worst_case`` (16 streams) and on
+that case's first stream alone.  A few rows (one stream) alone time the
+chain of one row (stream) plus a launch: the chain floor.  Every version's
+output is held to this tree's (LPC, rice, SBR, CELT and PS bit for bit, TNS
+within 1e-5 of each row's peak); then the versions are timed in turns, each
+and then each again in reverse order, with ``chip_smoke.kernel_ms`` (REPS
+launches in one CUDA graph).  Prints one line
 per shape, the card's name and power limit, and one JSON line.  Needs a
 CUDA device.
 """
@@ -48,7 +53,7 @@ from .. import _kernels
 from . import smoke
 
 #: The kernels compared, each built from OTHER's ``csrc/<name>.cu``.
-KERNELS = ("lpc", "rice", "tns", "sbr_env", "celt_comb")
+KERNELS = ("lpc", "rice", "tns", "sbr_env", "celt_comb", "ps_mix")
 _p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: Every C entry point a tree's kernels may have, with its argument types.
 ENTRY = {
@@ -59,6 +64,7 @@ ENTRY = {
                         + [_i64, _i32, _i32, _p]),
     "ohp_sbr_env_scan": [_p] * 23 + [_i64, _i32, _i32, _p],
     "ohp_celt_comb": [_p] * 6 + [_i64, _i32, _i32, _p],
+    "ohp_ps_mix": [_p] * 11 + [_i32, _i32, _p],
 }
 
 
@@ -171,6 +177,20 @@ def celt_launcher(lib, y, Tv, gt, win2):
     return run
 
 
+def ps_launcher(lib, mr, mi, H, carry, coef, imap):
+    """A function that launches ``lib``'s PS scan into outputs allocated
+    once; it returns them."""
+    C, S = mr.shape[:2]
+    outs = [*(torch.empty_like(mr) for _ in range(4)), torch.empty_like(carry)]
+    ptrs = [t.data_ptr() for t in (mr, mi, H, carry, coef, imap, *outs)]
+
+    def run():
+        _ok(lib.ohp_ps_mix(*ptrs, C, S, _stream()), "ps_mix")
+        return outs
+
+    return run
+
+
 def flac_group_planes(cs, dev) -> dict:
     """The wire planes, on ``dev``, of the first FLAC serving group of
     chip_smoke.py's content (its 18 streams, encoded in spawned workers)."""
@@ -229,7 +249,8 @@ def main() -> None:
     libs = {"this": _kernels.library()}
     for other in a.other:
         src = other / "ohpipeline_tpu_torch" / "csrc"
-        libs[other.name] = build([src / f"{k}.cu" for k in KERNELS],
+        libs[other.name] = build([src / f"{k}.cu" for k in KERNELS
+                                  if (src / f"{k}.cu").exists()],
                                  other / "_ab" / "libab.so")
 
     failed = []
@@ -324,6 +345,17 @@ def main() -> None:
     for shape, (y_, Tv_, gt_) in celt_shapes.items():
         runs = {k: celt_launcher(lib, y_, Tv_, gt_, win2)
                 for k, lib in libs.items()}
+        result[shape] = timed(shape, runs, same(runs))
+    _, seen = cs.first_calls(sbrd, ["ps_scan"], lambda: cs.serve_ps(
+        [cs.ps_content(0, cs.PS_GROUP)], "cuda"))
+    worst = cs.ps_mix_worst_case(dev)
+    ps_shapes = {"ps_mix PS group 0": seen["ps_scan"][0],
+                 "ps_mix worst case": worst,
+                 "ps_mix worst case, first stream alone (chain floor)":
+                 [a[:1] if a.dim() > 1 else a for a in worst]}
+    for shape, args in ps_shapes.items():
+        runs = {k: ps_launcher(lib, *args) for k, lib in libs.items()
+                if hasattr(lib, "ohp_ps_mix")}
         result[shape] = timed(shape, runs, same(runs))
     for shape, ms in result.items():
         cells = "  ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms"

@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from ohpipeline_tpu_torch import _host
+from ohpipeline_tpu_torch.codecs import aac
+from ohpipeline_tpu_torch.codecs.aac import sbr as aac_sbr
 from ohpipeline_tpu_torch.codecs.aac import serving as aac_serving
 from ohpipeline_tpu_torch.codecs.flac import serving as flac_serving
 from ohpipeline_tpu_torch.codecs.mp3 import serving as mp3_serving
@@ -46,6 +48,8 @@ CALLS = {
     "decode_aac_streams_device": (
         aac_serving.decode_aac_streams_device,
         lambda: ([(ASSETS / "dryrun.aac").read_bytes()],)),
+    "decode_adts": (
+        aac.decode_adts, lambda: ((ASSETS / "dryrun_he.aac").read_bytes(),)),
     "decode_he_streams_device": (
         aac_serving.decode_he_streams_device,
         lambda: ([(ASSETS / "dryrun_he.aac").read_bytes()],)),
@@ -77,3 +81,48 @@ def test_without_a_card_a_call_naming_no_device_raises(name):
     fn, args = CALLS[name]
     with pytest.raises((AssertionError, RuntimeError)):
         fn(*args())
+
+
+def _codec_group():
+    codec = aac.CodecAacAdts()
+    reader = _host.base.BufferReader((ASSETS / "dryrun.aac").read_bytes())
+    codec.stream_initialise(reader)
+    codec.process(reader).resolve()
+
+
+def _sbr_decoder():
+    _host.sbr_native()
+    data = (ASSETS / "dryrun_he.aac").read_bytes()
+    dec = _host.aac_sbr.SbrDecoder(
+        _host.aac_bitstream.parse_adts_header(data).sample_rate)
+    _, _, b = _host.aac_native().aac_parse_group_sbr(data, 0, channels=2,
+                                                    max_frames=1)
+    payload, nbits, crc = b["sbr"][0]
+    dec.parse_payload(payload, nbits, stereo=True, crc=crc)
+    return dec
+
+
+#: Classes whose work runs on ``device``: (class, one use that names no
+#: device).
+CLASSES = {
+    "CodecAacAdts": (aac.CodecAacAdts, _codec_group),
+    "SbrDeviceRunner": (aac_sbr.SbrDeviceRunner,
+                        lambda: aac_sbr.SbrDeviceRunner(_sbr_decoder())),
+    "SbrPsDeviceRunner": (aac_sbr.SbrPsDeviceRunner,
+                          lambda: aac_sbr.SbrPsDeviceRunner(_sbr_decoder())),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLASSES))
+def test_classes_default_to_the_card(name):
+    cls, _ = CLASSES[name]
+    assert inspect.signature(cls).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", sorted(CLASSES))
+def test_without_a_card_a_class_naming_no_device_raises(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, use = CLASSES[name]
+    with pytest.raises((AssertionError, RuntimeError)):
+        use()

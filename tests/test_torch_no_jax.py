@@ -1,12 +1,14 @@
-"""The port stands alone: it decodes FLAC, AAC-LC, HE-AAC v1, CELT, MP3 and
-Vorbis and runs the flagship step with every import of jax and of
+"""The port stands alone: it decodes FLAC, AAC-LC, HE-AAC v1 (serving, and the
+ADTS codec plug-in), HE-AAC v2 groups (the parametric-stereo runner), CELT,
+MP3 and Vorbis and runs the flagship step with every import of jax and of
 ohpipeline_tpu failing, in
 the repository and in a directory that holds only the port, chip_smoke.py and
 the test assets; no module of ohpipeline_tpu is ever loaded; its HE path
-parses every SBR payload natively; its copies of the JAX package's .cc and
-.npz files are byte for byte the originals; no file of the port imports jax
-or the JAX package or builds a path into it.  Its chip smoke test refuses to
-run, and builds nothing, where there is no CUDA device."""
+parses every SBR payload natively; its copies of the JAX package's .cc,
+.npz and whole .py files are byte for byte the originals; no file of the
+port imports jax or the JAX package or builds a path into it.  Its chip
+smoke test refuses to run, and builds nothing, where there is no CUDA
+device."""
 
 import ast
 import os
@@ -91,6 +93,19 @@ _BLOCKED = textwrap.dedent("""
     ogg = vs.build([(1, [(140, 120)] * 2, res)] * 6)
     pcm = decode_vorbis_stream_device(ogg, 4, device="cpu")
     assert pcm.shape == (2, 5 * 512) and pcm.any()
+    from ohpipeline_tpu_torch.codecs import aac
+    from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
+
+    info, pcm = aac.decode_adts(he, device="cpu")
+    assert info.codec_name == "HE-AAC" and pcm.shape == (2, 46 * 2048)
+    import chip_smoke
+
+    c = chip_smoke.ps_content(0, 8)
+    runner = sbrd.SbrPsDeviceRunner(c["dec"], device="cpu")
+    pcm = runner.decode_group_lazy_spec(
+        c["specs"], c["ops"], c["datas"], c["Es"], c["Qs"], c["ps"],
+        np.zeros(1024, np.float32))()
+    assert pcm.shape == (2, 8 * 2048) and pcm.any()
     loaded = [m for m in sys.modules if m == "ohpipeline_tpu"
               or m.startswith("ohpipeline_tpu.")]
     assert loaded == ["ohpipeline_tpu"], loaded     # the blocking None
@@ -143,6 +158,16 @@ def test_copied_sources_and_tables_are_the_originals():
     for p in copies:
         original = REPO / "ohpipeline_tpu" / p.relative_to(PORT / "host")
         assert p.read_bytes() == original.read_bytes(), p
+
+
+#: Host files the port copies whole (its other .py copies are in part).
+PY_COPIES = ("core/jiffies.py", "core/streaminfo.py")
+
+
+@pytest.mark.parametrize("rel", PY_COPIES)
+def test_whole_python_copies_are_the_originals(rel):
+    copy = PORT / "host" / rel
+    assert copy.read_bytes() == (REPO / "ohpipeline_tpu" / rel).read_bytes()
 
 
 _JAX_TEXT = re.compile(r"\b(import\s+jax|from\s+jax)\b")
