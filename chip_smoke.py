@@ -105,7 +105,9 @@ Phases, each ending in torch.cuda.synchronize():
      call), on a worst case (16 streams, every channel near full scale on a
      burst every 8 slots, every mixing group's matrix distinct, a seeded
      carry) and on the second of a chained pair of worst-case groups; all
-     timed, with the first stream's block alone as the chain floor;
+     timed, with each of its three stages' device time (group powers, the
+     recurrences, the mix; torch.profiler by kernel name) and the
+     recurrences' stage alone as the chain floor;
  16. the ADTS codec plug-in CodecAacAdts(device="cuda") over
      tests/assets/dryrun.aac (AAC-LC) and dryrun_he.aac (HE-AAC v1; its
      groups on the spec-mode SBR runner), held to the same plug-in on the
@@ -1361,10 +1363,36 @@ def check_tns(name, arrays, dev):
 PS_OPS_PER_SLOT = 284 + 240 + 1792 + 146 + 876
 
 
+#: The kernels of the PS scan's three stages (csrc/ps_mix.cu), by name: the
+#: group powers, the recurrences (one block a stream), the mix.
+PS_STAGES = ("ps_powers", "ps_chains", "ps_mix_out")
+
+
+def ps_mix_stages(args, reps: int = 10) -> dict:
+    """Device ms of one launch of each PS_STAGES kernel on ``args``: the
+    mean over the launches of it that a torch.profiler trace of reps
+    ps_scan calls records, by kernel name (the trace may miss a launch at
+    its start)."""
+    from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
+    from ohpipeline_tpu_torch.tools import trace_call
+
+    _prof, events, _ = trace_call(
+        lambda: [sbrd.ps_scan(*args) for _ in range(reps)])
+    out = {}
+    for stage in PS_STAGES:
+        spans = [e.time_range.end - e.time_range.start for e in events
+                 if stage in e.name]
+        if not reps // 2 <= len(spans) <= reps:
+            raise AssertionError(f"ps_mix stage {stage}: {len(spans)} "
+                                 f"kernels in a trace of {reps} calls")
+        out[stage] = sum(spans) / len(spans) / 1e3
+    return out
+
+
 def check_ps_mix(name, args):
     """PS decorrelator kernel against its plain version (ps_scan_torch) on
     the card, bit for bit; returns (max |err|, kernel ms, plain ms, bound
-    ms, bound by, chain floor ms: the first stream's block alone)."""
+    ms, bound by, chain floor ms: the chains stage alone)."""
     import torch
     from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
 
@@ -1376,16 +1404,16 @@ def check_ps_mix(name, args):
         raise AssertionError(f"ps_mix kernel != plain on {name} (max |err| "
                              f"{err:.4g})")
     ms = kernel_ms(lambda: sbrd.ps_scan(*args), 20)
-    one = [a[:1] if a.dim() > 1 else a for a in args]
-    floor_ms = ms if args[0].shape[0] == 1 else \
-        kernel_ms(lambda: sbrd.ps_scan(*one), 20)
+    stages = ps_mix_stages(args)
     plain_ms = cuda_ms(lambda: sbrd.ps_scan_torch(*args), 1)
     C, S = args[0].shape[:2]
     b_ms, b_by = bound(nbytes(*args, *got), PS_OPS_PER_SLOT * C * S)
+    split = ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
     print(f"phase 15: ps_mix {name}: C={C} S={S} bit-exact; kernel "
-          f"{ms:.4f} ms (one stream alone {floor_ms:.4f}), plain "
+          f"{ms:.4f} ms (stages, traced: {split} ms; chain floor, the "
+          f"chains stage: {stages['ps_chains']:.4f}), plain "
           f"{plain_ms:.1f} ms, bound {b_ms * 1e3:.2f} us ({b_by})")
-    return err, ms, plain_ms, b_ms, b_by, floor_ms
+    return err, ms, plain_ms, b_ms, b_by, stages["ps_chains"]
 
 
 def serve_ps(contents: list, device) -> tuple:

@@ -109,8 +109,14 @@ def _build() -> ctypes.CDLL:
     lib.ohp_celt_comb.restype = i32
     lib.ohp_mp3_window.argtypes = [p, p, p, i32, i32, i32, p]
     lib.ohp_mp3_window.restype = i32
-    lib.ohp_ps_mix.argtypes = [p] * 11 + [i32, i32, p]
+    lib.ohp_ps_mix.argtypes = [p] * 12 + [i32, i32, p]
     lib.ohp_ps_mix.restype = i32
+    lib.ohp_ps_mix_scratch.argtypes = []
+    lib.ohp_ps_mix_scratch.restype = i32
+    if lib.ohp_ps_mix_scratch() != PS_SCRATCH:
+        raise RuntimeError(f"csrc/ps_mix.cu takes {lib.ohp_ps_mix_scratch()} "
+                           f"scratch floats a slot, PS_SCRATCH says "
+                           f"{PS_SCRATCH}")
     return lib
 
 
@@ -330,8 +336,11 @@ def celt_comb(y: torch.Tensor, Tv: torch.Tensor, gt: torch.Tensor,
 
 
 #: Polyphase slots per granule and carried V rows of the MP3 window pass,
-#: fixed in ``csrc/mp3_window.cu``; its blocks take 2 channels each.
-MP3_SLOTS, MP3_HIST, MP3_CT = 18, 15, 2
+#: and its blocks' extent: one channel and a run of 4 granules, all of whose
+#: rows a block requests at once into a ring of 128 V rows.  Fixed in
+#: ``csrc/mp3_window.cu``.
+MP3_SLOTS, MP3_HIST = 18, 15
+MP3_RUN, MP3_RING = 4, 128
 
 
 def mp3_window(vfull: torch.Tensor, wnd: torch.Tensor,
@@ -342,7 +351,7 @@ def mp3_window(vfull: torch.Tensor, wnd: torch.Tensor,
     float32 (the carried V history oldest first, then the group's slots)
     and wnd (16, 32) float32 -> (Tg, B, 576) int32 PCM in the bit_depth
     range.  The kernel moves vfull 16 bytes at a time, so it must be
-    16-byte aligned."""
+    16-byte aligned (and so is the output it allocates)."""
     dev = vfull.device
     if dev.type != "cuda":
         raise ValueError(f"mp3_window kernel needs a CUDA tensor, got {dev}")
@@ -355,9 +364,9 @@ def mp3_window(vfull: torch.Tensor, wnd: torch.Tensor,
                          f"{bit_depth}")
     Tg = T // MP3_SLOTS
     if vfull.numel() >= 2 ** 31 or Tg * B * 576 >= 2 ** 31 \
-            or B > MP3_CT * 65535:
+            or B > 65535:
         raise ValueError(f"mp3_window kernel takes int32 extents and at most "
-                         f"{MP3_CT * 65535} channels, got Tg={Tg} B={B}")
+                         f"65535 channels, got Tg={Tg} B={B}")
     _check("vfull", vfull, (MP3_HIST + T, B, 64), dev, torch.float32)
     _check("wnd", wnd, (16, 32), dev, torch.float32)
     if vfull.data_ptr() % 16:
@@ -376,8 +385,11 @@ def mp3_window(vfull: torch.Tensor, wnd: torch.Tensor,
 #: Channels of a PS slot, mixing groups, and the sizes of one stream's scan
 #: carry and of the packed coefficient and index tables of the PS scan, fixed
 #: in ``csrc/ps_mix.cu`` (the layouts ``PS_CARRY``, ``PS_COEF`` and
-#: ``PS_IMAP`` of ``codecs.aac.sbr``).
+#: ``PS_IMAP`` of ``codecs.aac.sbr``), and the scratch floats a slot of a
+#: stream takes between its stages (the group powers, ppd and nrg, 20 each;
+#: the all-pass channels' d, 32 re and 32 im).
 PS_CH, PS_MIX, PS_NCARRY, PS_NCOEF, PS_NIMAP = 73, 22, 2104, 367, 787
+PS_SCRATCH = 124
 
 
 def ps_mix(mr: torch.Tensor, mi: torch.Tensor, H: torch.Tensor,
@@ -387,15 +399,17 @@ def ps_mix(mr: torch.Tensor, mi: torch.Tensor, H: torch.Tensor,
     on the card, with the arguments and results of
     ``codecs.aac.sbr.ps_scan_torch``: mr, mi (C, S, 73) float32 mid slots,
     H (C, S, 4, 22) float32 mixing matrices, carry (C, 2104) float32,
-    coef (367,) float32 and imap (787,) int32.  One block per stream.
-    Returns new tensors (Lr, Li, Rr, Ri (C, S, 73), carry)."""
+    coef (367,) float32 and imap (787,) int32.  Three kernels back to back
+    (group powers, the chains with one block a stream, the mix), one launch
+    counted; their (C, S, 124) float32 scratch is allocated here.  Returns
+    new tensors (Lr, Li, Rr, Ri (C, S, 73), carry)."""
     dev = mr.device
     if dev.type != "cuda":
         raise ValueError(f"ps_mix kernel needs a CUDA tensor, got {dev}")
     C, S = mr.shape[:2]
-    if not (1 <= C < 2 ** 31 and 1 <= S < 2 ** 31):
-        raise ValueError(f"ps_mix kernel takes 1 <= C, S < 2^31, got C={C} "
-                         f"S={S}")
+    if not (1 <= C <= 65535 and 1 <= S and S * PS_CH < 2 ** 31):
+        raise ValueError(f"ps_mix kernel takes 1 <= C <= 65535 and 1 <= S "
+                         f"with S*73 < 2^31, got C={C} S={S}")
     f32 = torch.float32
     _check("mr", mr, (C, S, PS_CH), dev, f32)
     _check("mi", mi, (C, S, PS_CH), dev, f32)
@@ -405,11 +419,12 @@ def ps_mix(mr: torch.Tensor, mi: torch.Tensor, H: torch.Tensor,
     _check("imap", imap, (PS_NIMAP,), dev)
     outs = [torch.empty_like(mr) for _ in range(4)]
     carry_out = torch.empty_like(carry)
+    scratch = torch.empty((C, S, PS_SCRATCH), dtype=f32, device=dev)
     lib = library()
     with torch.cuda.device(dev):
         rc = lib.ohp_ps_mix(
-            *(t.data_ptr() for t in (mr, mi, H, carry, coef, imap, *outs,
-                                     carry_out)), C, S, _stream(dev))
+            *(t.data_ptr() for t in (mr, mi, H, carry, coef, imap, scratch,
+                                     *outs, carry_out)), C, S, _stream(dev))
     _raise_on(rc, "ps_mix")
     launches["ps_mix"] += 1
     return (*outs, carry_out)

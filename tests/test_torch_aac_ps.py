@@ -21,9 +21,10 @@ Tolerances, and why:
     (``tests/test_ps_device.py``'s bounds).
 The scan's plain version ``ps_scan_torch`` and the kernel
 ``csrc/ps_mix.cu`` take every operation in the same order, so they agree bit
-for bit: ``ps_kernel_model`` (the kernel's chunked walk with its ring
-pointers, in numpy float32) is held bit for bit to the plain version here,
-and the ``gpu`` tests hold the kernel itself to it on the card.
+for bit: ``ps_kernel_model`` (the kernel's three stages, its 60-slot chunks
+and its register rings, in numpy float32) is held bit for bit to the plain
+version here, and the ``gpu`` tests hold the kernel itself to it on the
+card.
 
 JAX is imported inside the tests that compare with it, so the ``gpu`` tests
 run where JAX is absent."""
@@ -305,99 +306,96 @@ def test_ps_runner_matches_jax_and_the_numpy_chain(content, numpy_ref,
             <= 1e-4 * np.abs(ov).max()
 
 
-def ps_kernel_model(mr, mi, H, carry, coef, imap, chunk=32):
-    """csrc/ps_mix.cu's walk in numpy float32, vectorised over its threads:
-    per stream, slots in chunks of ``chunk``; per chunk the (group, slot)
-    powers, the 20-thread recurrence, then each channel's delay, all-pass
-    links over rings addressed by their oldest slot (p3, p4, p5, pl) in
-    shared-memory layout, and mix; the carry written back oldest slot
-    first.  Every numpy float32 operation rounds on its own, as the
-    kernel's __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn do."""
+def ps_kernel_model(mr, mi, H, carry, coef, imap):
+    """csrc/ps_mix.cu's three stages in numpy float32, vectorised over the
+    streams and over each stage's threads.  1. the group powers; 2. the
+    chains: the 20 power chains storing (ppd, nrg) a slot, and the 32
+    all-pass channels walked slot by slot (the kernel's chunks of staged
+    slots change no operation), each ring held oldest first and moved along
+    a slot as the kernel's registers are, the re and im parts of a channel each computed as the kernel's lane
+    pair does (own part x c1 + other part x c2, a difference taken as the
+    sum with the negated product), storing d before the transient factor;
+    3. the mix: trans from (ppd,
+    nrg), the long channels' delay read straight from the input or the
+    carried ring, the carry's long rings the last 14 inputs.  Every numpy
+    float32 operation rounds on its own, as the kernel's __fmul_rn /
+    __fadd_rn / __fsub_rn / __fdiv_rn do."""
     mr, mi, H, carry, coef = (np.asarray(a, np.float32)
                               for a in (mr, mi, H, carry, coef))
     imap = np.asarray(imap)
     f32 = np.float32
     k = sbrd._split(coef, sbrd.PS_COEF)
     ix = sbrd._split(imap, sbrd.PS_IMAP)
+    cin = sbrd._split(carry, sbrd.PS_CARRY)
     pk, ic, ti = k["pk_ic_ti"]
-    AP, LG = sbrd.PS_AP, sbrd.PS_LONG
+    AP, LG, NG, LNG = sbrd.PS_AP, sbrd.PS_LONG, sbrd.PS_GROUPS, sbrd.PS_LNG
     C, Sn, _ = mr.shape
-    outs = np.zeros((4, C, Sn, sbrd.PS_CH), f32)
-    cout = np.zeros_like(carry)
-    lidx = np.arange(LG)
-    for c in range(C):
-        cin = sbrd._split(carry[c], sbrd.PS_CARRY)
-        pd, ppd, pnrg = (cin["pow"][i].copy() for i in range(3))
-        d2a_r, d2b_r = cin["d2_re"][0].copy(), cin["d2_re"][1].copy()
-        d2a_i, d2b_i = cin["d2_im"][0].copy(), cin["d2_im"][1].copy()
-        s_ap = np.zeros((2, 12, AP), f32)
-        for base, d in ((0, 3), (3, 4), (7, 5)):
-            s_ap[0, base:base + d] = cin[f"r{d}_re"].T
-            s_ap[1, base:base + d] = cin[f"r{d}_im"].T
-        s_lng = np.stack([cin["lng_re"].T, cin["lng_im"].T]).copy()
-        p3 = p4 = p5 = pl = 0
-        for t0 in range(0, Sn, chunk):
-            n = min(chunk, Sn - t0)
-            xr, xi, h = mr[c, t0:t0 + n], mi[c, t0:t0 + n], H[c, t0:t0 + n]
-            s_tr = np.zeros((n, sbrd.PS_GROUPS), f32)
-            for g in range(sbrd.PS_GROUPS):
-                acc = np.zeros(n, f32)
-                for j in range(int(ix["nmem"][g])):
-                    m = ix["members"][g, j]
-                    acc = acc + (xr[:, m] * xr[:, m] + xi[:, m] * xi[:, m])
-                s_tr[:, g] = acc
-            for t in range(n):
-                p = s_tr[t].copy()
-                pd = np.maximum(pd * pk, p)
-                ppd = ppd + ic * ((pd - p) - ppd)
-                pnrg = np.maximum(pnrg + ic * (p - pnrg), f32(0))
-                nrg = pnrg * ti
-                with np.errstate(over="ignore"):     # the branch not taken
-                    s_tr[t] = np.where(ppd <= nrg, f32(1),
-                                       nrg / np.maximum(ppd, f32(1e-30)))
-            for t in range(n):
-                x_r, x_i = xr[t], xi[t]
-                r0r = d2a_r * k["phi_re"] - d2a_i * k["phi_im"]
-                r0i = d2a_r * k["phi_im"] + d2a_i * k["phi_re"]
-                d2a_r, d2a_i = d2b_r, d2b_i
-                d2b_r, d2b_i = x_r[:AP].copy(), x_i[:AP].copy()
-                res_r, res_i = k["dsf"] * r0r, k["dsf"] * r0i
-                for m, at in enumerate((p3, 3 + p4, 7 + p5)):
-                    sr, si = s_ap[0, at].copy(), s_ap[1, at].copy()
-                    sre, sim = k["ser_re"][:, m], k["ser_im"][:, m]
-                    tr = (sr * sre - si * sim) - k["dser"][m] * res_r
-                    tq = (sr * sim + si * sre) - k["dser"][m] * res_i
-                    res_r, res_i = k["dsf"] * tr, k["dsf"] * tq
-                    s_ap[0, at] = r0r + k["dser"][m] * res_r
-                    s_ap[1, at] = r0i + k["dser"][m] * res_i
-                    r0r, r0i = tr, tq
-                rd = pl + ix["loff"]
-                rd = np.where(rd < sbrd.PS_LNG, rd, rd - sbrd.PS_LNG)
-                dl_r, dl_i = s_lng[0, rd, lidx], s_lng[1, rd, lidx]
-                s_lng[0, pl], s_lng[1, pl] = x_r[AP:], x_i[AP:]
-                tc = s_tr[t][ix["tgrp"]]
-                dr = np.concatenate([r0r, dl_r]) * tc
-                di = np.concatenate([r0i, dl_i]) * tc
-                hh = h[t][:, ix["mgrp"]]
-                cm = k["cmask"]
-                outs[:, c, t0 + t] = [(hh[0] * x_r + hh[2] * dr) * cm,
-                                      (hh[0] * x_i + hh[2] * di) * cm,
-                                      (hh[1] * x_r + hh[3] * dr) * cm,
-                                      (hh[1] * x_i + hh[3] * di) * cm]
-                p3, p4, p5 = (p3 + 1) % 3, (p4 + 1) % 4, (p5 + 1) % 5
-                pl = (pl + 1) % sbrd.PS_LNG
-        parts = dict(pow=np.stack([pd, ppd, pnrg]),
-                     d2_re=np.stack([d2a_r, d2b_r]),
-                     d2_im=np.stack([d2a_i, d2b_i]))
-        for base, d, p in ((0, 3, p3), (3, 4, p4), (7, 5, p5)):
-            order = base + (p + np.arange(d)) % d
-            parts[f"r{d}_re"] = s_ap[0, order].T
-            parts[f"r{d}_im"] = s_ap[1, order].T
-        order = (pl + np.arange(sbrd.PS_LNG)) % sbrd.PS_LNG
-        parts["lng_re"] = s_lng[0, order].T
-        parts["lng_im"] = s_lng[1, order].T
-        cout[c] = np.concatenate([parts[nm].reshape(-1)
-                                  for nm, _ in sbrd.PS_CARRY])
+    # 1. group powers, members in channel order
+    p = np.zeros((C, Sn, NG), f32)
+    for g in range(NG):
+        acc = np.zeros((C, Sn), f32)
+        for j in range(int(ix["nmem"][g])):
+            m = ix["members"][g, j]
+            acc = acc + (mr[..., m] * mr[..., m] + mi[..., m] * mi[..., m])
+        p[..., g] = acc
+    # 2. the power chains
+    pd, ppd, pnrg = (cin["pow"][:, i].copy() for i in range(3))
+    ppd_s, nrg_s = np.zeros((2, C, Sn, NG), f32)
+    for t in range(Sn):
+        pt = p[:, t]
+        pd = np.maximum(pd * pk, pt)
+        ppd = ppd + ic * ((pd - pt) - ppd)
+        pnrg = np.maximum(pnrg + ic * (pt - pnrg), f32(0))
+        ppd_s[:, t], nrg_s[:, t] = ppd, pnrg * ti
+    # ... and the all-pass walk
+    d2a_r, d2b_r = (cin["d2_re"][:, i].copy() for i in range(2))
+    d2a_i, d2b_i = (cin["d2_im"][:, i].copy() for i in range(2))
+    rings = [[cin[f"r{d}_re"].copy(), cin[f"r{d}_im"].copy()]
+             for d in sbrd.PS_LINKS]
+    d_re, d_im = np.zeros((2, C, Sn, AP), f32)
+    for t in range(Sn):
+        x_r, x_i = mr[:, t, :AP], mi[:, t, :AP]
+        # a lane's part: own * c1 + other * c2, a - b taken as a + (-b)
+        r0r = d2a_r * k["phi_re"] + d2a_i * -k["phi_im"]
+        r0i = d2a_i * k["phi_re"] + d2a_r * k["phi_im"]
+        d2a_r, d2a_i, d2b_r, d2b_i = d2b_r, d2b_i, x_r, x_i
+        res_r, res_i = k["dsf"] * r0r, k["dsf"] * r0i
+        for m, ring in enumerate(rings):
+            sr, si = ring[0][..., 0], ring[1][..., 0]
+            sre, sim = k["ser_re"][:, m], k["ser_im"][:, m]
+            tr = (sr * sre + si * -sim) - k["dser"][m] * res_r
+            tq = (si * sre + sr * sim) - k["dser"][m] * res_i
+            res_r, res_i = k["dsf"] * tr, k["dsf"] * tq
+            new = (r0r + k["dser"][m] * res_r, r0i + k["dser"][m] * res_i)
+            for q in range(2):
+                ring[q] = np.concatenate(
+                    [ring[q][..., 1:], new[q][..., None]], -1)
+            r0r, r0i = tr, tq
+        d_re[:, t], d_im[:, t] = r0r, r0i
+    # 3. trans, the long delays and the mix
+    with np.errstate(over="ignore", divide="ignore"):  # the branch not taken
+        trans = np.where(ppd_s <= nrg_s, f32(1),
+                         nrg_s / np.maximum(ppd_s, f32(1e-30)))
+    tc = trans[..., ix["tgrp"]]
+    hist = [np.concatenate([cin[f"lng_{q}"].transpose(0, 2, 1), x[..., AP:]],
+                           1) for q, x in (("re", mr), ("im", mi))]
+    at = np.arange(Sn)[:, None] + ix["loff"][None, :]
+    dr = np.concatenate([d_re, hist[0][:, at, np.arange(LG)]], -1) * tc
+    di = np.concatenate([d_im, hist[1][:, at, np.arange(LG)]], -1) * tc
+    hh, cm = H[..., ix["mgrp"]], k["cmask"]
+    outs = [(hh[:, :, 0] * mr + hh[:, :, 2] * dr) * cm,
+            (hh[:, :, 0] * mi + hh[:, :, 2] * di) * cm,
+            (hh[:, :, 1] * mr + hh[:, :, 3] * dr) * cm,
+            (hh[:, :, 1] * mi + hh[:, :, 3] * di) * cm]
+    parts = dict(pow=np.stack([pd, ppd, pnrg], 1),
+                 d2_re=np.stack([d2a_r, d2b_r], 1),
+                 d2_im=np.stack([d2a_i, d2b_i], 1),
+                 lng_re=hist[0][:, Sn:Sn + LNG].transpose(0, 2, 1),
+                 lng_im=hist[1][:, Sn:Sn + LNG].transpose(0, 2, 1))
+    for d, (re, im) in zip(sbrd.PS_LINKS, rings):
+        parts[f"r{d}_re"], parts[f"r{d}_im"] = re, im
+    cout = np.concatenate([parts[nm].reshape(C, -1)
+                           for nm, _ in sbrd.PS_CARRY], 1)
     return (*outs, cout)
 
 
@@ -408,19 +406,32 @@ def _equal(got, want):
         assert np.array_equal(g.view(np.int32), w.view(np.int32))
 
 
-@pytest.mark.parametrize("case", ["worst", "tail chunk", "real"])
+@pytest.mark.parametrize("case", ["worst", "tail chunk", "real", "S=1",
+                                  "S=59", "S=60", "S=61", "S=121",
+                                  "chained"])
 def test_ps_kernel_model_equals_plain(case, content, monkeypatch):
+    """Full chunks and remainders of 1 to 29 slots, a group shorter than the
+    2-slot delay and than every ring, and a carry from a group whose last
+    chunk was short into the next."""
     if case == "real":
         seen, rec = _capture_scan()
         monkeypatch.setattr(sbrd, "ps_scan_torch", rec)
         _spec_groups(sbrd.SbrPsDeviceRunner(content["dec"], device="cpu"),
                      content, np.zeros(1024, np.float32))
         args = seen[1]
+    elif case.startswith("S="):
+        args = chip_smoke.ps_mix_worst_case("cpu", C=1, S=int(case[2:]))
     else:
         args = chip_smoke.ps_mix_worst_case(
-            "cpu", C=2, S=S if case == "worst" else 101)
+            "cpu", C=2, S={"worst": S, "tail chunk": 101, "chained": 61}[case])
     want = sbrd.ps_scan_torch(*args)
-    _equal(ps_kernel_model(*args), want)
+    got = ps_kernel_model(*args)
+    _equal(got, want)
+    if case == "chained":
+        nxt = chip_smoke.ps_mix_worst_case("cpu", C=2, S=121, seed=16)
+        want = sbrd.ps_scan_torch(*nxt[:3], want[4], *nxt[4:])
+        got = ps_kernel_model(*nxt[:3], got[4], *nxt[4:])
+        _equal(got, want)
     if case == "worst":
         trans = sbrd.ps_transients(
             args[0], args[1], sbrd._split(args[3], sbrd.PS_CARRY)["pow"],
@@ -437,10 +448,15 @@ def test_ps_scan_needs_a_kernel_off_the_cpu():
         sbrd.ps_scan(*(a.to("meta") for a in args))
 
 
+PS_CARD_CASES = {"worst": (3, S), "tail chunk": (2, 101), "chained": (3, S),
+                 **{f"C={c} S={n}": (c, n) for n in (1, 59, 61, 121)
+                    for c in (1, 16)}}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["worst", "tail chunk", "chained"])
+@pytest.mark.parametrize("case", list(PS_CARD_CASES))
 def test_ps_mix_kernel_matches_plain_on_card(cuda, case):
-    C, n = (3, S) if case != "tail chunk" else (2, 101)
+    C, n = PS_CARD_CASES[case]
     args = chip_smoke.ps_mix_worst_case(cuda, C=C, S=n)
     _kernels.reset_launches()
     got = sbrd.ps_scan(*args)

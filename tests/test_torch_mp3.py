@@ -16,8 +16,10 @@ taken in another order; 1 LSB measured; 24 bits: see
 ``test_hybrid_parallel_matches_jax``), and the carried state to 1e-5 of its
 peak (float32 rounding of sums of 18-32 terms).  The ``gpu`` tests hold the
 ``csrc/mp3_window.cu`` kernel to ``mp3_window_torch`` on the card on
-chip_smoke.py's worst case (<= 1 LSB, the smoke test's gate; the plain
-version sums in the kernel's order, so they should agree bit for bit) and
+chip_smoke.py's worst case and on short and odd shapes (<= 1 LSB, the smoke
+test's gate; the plain version sums in the kernel's order, so they should
+agree bit for bit: ``window_run_model``, the kernel's walk of a run of
+granules through its ring of V rows, is held bit for bit to it here) and
 the whole filterbank on the card to the CPU (<= 1 LSB).
 
 JAX is imported inside the tests that compare with it, so the ``gpu`` tests
@@ -282,6 +284,60 @@ def test_mp3_window_torch_matches_the_jax_window_pass():
     assert np.abs(want).max() > 1000
 
 
+def window_run_model(vfull, wnd, bit_depth):
+    """csrc/mp3_window.cu's walk in numpy float32: one block per (run of
+    MP3_RUN granules, channel) holds a ring of MP3_RING V rows
+    (row r at r mod MP3_RING); it loads the run's 15 history rows with its
+    first granule's 18, then each granule's 18 new rows (the run's rows
+    must not overwrite each other in the ring), and sums slot s of granule
+    g from the ring in j order."""
+    vfull, wnd = np.asarray(vfull, np.float32), np.asarray(wnd, np.float32)
+    T, Bc = vfull.shape[0] - 15, vfull.shape[1]
+    Tg, R, RING = T // 18, _kernels.MP3_RUN, _kernels.MP3_RING
+    out = np.zeros((Tg, Bc, 576), np.int64)
+    lim = 1 << (bit_depth - 1)
+    s = np.arange(18)                             # slots of a granule
+    for g0 in range(0, Tg, R):
+        n = min(R, Tg - g0)
+        for ch in range(Bc):
+            ring = np.full((RING, 64), np.nan, np.float32)
+
+            def load(lo, hi):
+                for r in range(lo, hi):
+                    ring[r % RING] = vfull[r, ch]
+            load(18 * g0, 18 * g0 + 33)
+            for g in range(g0 + 1, g0 + n):
+                load(18 * g + 15, 18 * g + 33)
+            for g in range(g0, g0 + n):
+                r0 = 18 * g + 15 + s
+                acc = np.zeros((18, 32), np.float32)
+                for m in range(8):
+                    acc = acc + wnd[2 * m] * ring[(r0 - 2 * m) % RING, :32]
+                    acc = acc + wnd[2 * m + 1] \
+                        * ring[(r0 - 1 - 2 * m) % RING, 32:]
+                pcm = np.clip(np.rint(acc * np.float32(lim)), -lim, lim - 1)
+                out[g, ch] = pcm.reshape(576)
+    return out
+
+
+@pytest.mark.parametrize("Tg", [1, _kernels.MP3_RUN - 1, _kernels.MP3_RUN,
+                                _kernels.MP3_RUN + 1, 64])
+@pytest.mark.parametrize("bit_depth", [16, 24])
+def test_window_run_model_equals_plain(Tg, bit_depth):
+    """Bit for bit: the kernel sums in the plain version's order.  Tg not a
+    multiple of the run leaves the last run short; 64 granules wrap the
+    ring."""
+    vfull = chip_smoke.mp3_window_case("cpu", Tg=Tg, B=3,
+                                       n_real=max(Tg - 1, 1))
+    wnd = PS.device_static("cpu").wnd
+    want = PS.mp3_window_torch(vfull, wnd, bit_depth).numpy()
+    assert np.array_equal(window_run_model(vfull.numpy(), wnd.numpy(),
+                                           bit_depth), want)
+    if Tg == 64:
+        lim = 1 << (bit_depth - 1)
+        assert (want == lim - 1).any() and (want == -lim).any()
+
+
 def _jax_frames(data):
     from ohpipeline_tpu.codecs.mp3 import bitstream as JB
 
@@ -320,18 +376,24 @@ def test_n_real_outside_the_group_raises():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("Tg,Bc", [(64, 33), (1, 1), (1, 33),
+                                   (_kernels.MP3_RUN + 1, 1),
+                                   (_kernels.MP3_RUN + 1, 33), (64, 1)])
 @pytest.mark.parametrize("bit_depth", [16, 24])
-def test_mp3_window_kernel_matches_plain_on_the_card(cuda, bit_depth):
-    vfull = chip_smoke.mp3_window_case(cuda)
+def test_mp3_window_kernel_matches_plain_on_the_card(cuda, bit_depth, Tg,
+                                                     Bc):
+    vfull = chip_smoke.mp3_window_case(cuda, Tg=Tg, B=Bc)
     wnd = PS.device_static(cuda).wnd
     _kernels.reset_launches()
     got = _kernels.mp3_window(vfull, wnd, bit_depth)
     assert _kernels.launches["mp3_window"] == 1
     want = PS.mp3_window_torch(vfull, wnd, bit_depth)
     torch.cuda.synchronize()
+    assert got.shape == want.shape == (Tg, Bc, 576)
     assert int((got.long() - want.long()).abs().max()) <= 1
-    lim = 1 << (bit_depth - 1)
-    assert bool((want == lim - 1).any()) and bool((want == -lim).any())
+    if (Tg, Bc) == (64, 33):
+        lim = 1 << (bit_depth - 1)
+        assert bool((want == lim - 1).any()) and bool((want == -lim).any())
 
 
 @pytest.mark.gpu
