@@ -120,7 +120,24 @@ Phases, each ending in torch.cuda.synchronize():
      per-frame numpy process_frame_ps chain fed the same core and channel
      data (max error < 5e-3 of the peak, rms error < 1e-3 of the rms), the
      ps_mix launch count of a warm run must equal its number of groups, and
-     a traced run gives the card's idle share.
+     a traced run gives the card's idle share;
+ 17. the render path (render_phase): phase 0's first CD stream and first
+     24-bit / 96 kHz stream, as .flac files, through the port's
+     PipelineManager(device="cuda").play_uri, its codec controller (the
+     CodecFlac plug-in on the LPC kernel) and an AnimatorBatch, with the JAX
+     end-to-end tests' params (no gorge, starvation ramper unthreaded):
+     bit-exact against the encoder input, the lpc launches of a warm run
+     equal to the FLAC groups the plug-in resolved, each play's warm wall
+     and a traced play's idle share; the CD stream paused after 4 pulled
+     events and played again once paused, so a down and an up ramp pass
+     through the RenderBatcher on the card, bit for bit against the same
+     run on the CPU (a non-unity tile must have been rendered);
+     tests/assets/dryrun.aac and dryrun_he.aac through the pipeline, card
+     against CPU (<= 1 and <= 2 LSB), sbr_env launched; a realtime
+     AnimatorBasic (5 ms quanta, default params) over a 3 s cut of the CD
+     track, which must end and deliver the track (late quanta printed, no
+     gate); and the LPC kernel against its plain version at the render
+     path's shape (the first group's rows, 32 x 4096), timed.
 
 A kernel's time is the mean of 20 launches captured in one CUDA graph
 (kernel_ms: a launch from Python takes longer on the host than a short
@@ -151,6 +168,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -364,7 +382,7 @@ def lpc_taps(coeffs) -> np.ndarray:
     return np.where(nz.any(1), 32 - np.argmax(nz[:, ::-1], 1), 0)
 
 
-def check_lpc(name, args):
+def check_lpc(name, args, phase: int = 2):
     """LPC kernel against the plain version on the card, bit for bit;
     returns (max |err|, kernel ms, plain ms, (bound ms, bound by))."""
     import torch
@@ -388,7 +406,7 @@ def check_lpc(name, args):
     narrow = float((np.concatenate([taps, pad]).reshape(-1, 4).max(1)
                     <= 8).mean())
     order = np.bincount(args[3].cpu().numpy())
-    print(f"phase 2: lpc {name} {B}x{N} bit-exact; orders "
+    print(f"phase {phase}: lpc {name} {B}x{N} bit-exact; orders "
           f"{np.flatnonzero(order).min()}-{len(order) - 1}, "
           f"{order.max()} rows of order {order.argmax()}; blocks on the "
           f"8-lane path {narrow:.3f}; kernel {ms:.4f} ms, plain "
@@ -1470,6 +1488,271 @@ def plugin_decode(path: str, device) -> tuple:
     return info, np.concatenate(parts, axis=1), codec
 
 
+class Sink:
+    """An animator's sink that keeps what it is given: the rendered (ch, n)
+    chunks and their stream infos."""
+
+    def __init__(self):
+        self.chunks, self.infos = [], []
+
+    def __call__(self, samples, info) -> None:
+        self.chunks.append(samples)
+        self.infos.append(info)
+
+    @property
+    def samples(self) -> int:
+        return sum(c.shape[1] for c in self.chunks)
+
+    @property
+    def pcm(self) -> np.ndarray:
+        return (np.concatenate(self.chunks, axis=1) if self.chunks
+                else np.zeros((2, 0), np.int32))
+
+
+def render_params(params):
+    """``params`` (a PipelineInitParams of the port or of the JAX package)
+    set as the JAX package's end-to-end tests set them
+    (tests/test_pipeline_e2e.py make_manager): no gorge, and the starvation
+    ramper pulled inline, so a run is the same event for event each time."""
+    params.gorge_jiffies = 0
+    params.threaded_starvation_ramper = False
+    return params
+
+
+def ramp_play(mgr, animator, uri: str, before: int) -> None:
+    """Plays ``uri`` through ``mgr`` (a PipelineManager of the port or of the
+    JAX package) into ``animator`` (an AnimatorBatch on its render chain)
+    with a pause after ``before`` pulled events: the Stopper's down ramp is
+    pulled one event at a time until it has paused, then a play ramps up
+    and the track plays to its end.  Both ramps pass through the animator's
+    RenderBatcher."""
+    mgr.play_uri(uri)
+    animator.run(max_events=before)
+    mgr.pause()
+    while mgr.pipeline.stopper.state.value != "paused":
+        animator.run(max_events=1)
+    mgr.play()
+    animator.run()
+
+
+def render_play(path: str, device, ramp_before: int = 0):
+    """Plays the file ``path`` through the port's PipelineManager and an
+    AnimatorBatch on ``device`` (with a pause and play, through
+    :func:`ramp_play`, when ``ramp_before``).  Returns (sink, wall seconds,
+    the animator's RenderBatcher)."""
+    import torch
+    from ohpipeline_tpu_torch import pipeline
+
+    mgr = pipeline.PipelineManager(
+        render_params(pipeline.PipelineInitParams()), device=device)
+    try:
+        sink = Sink()
+        anim = pipeline.AnimatorBatch(mgr.pipeline.predriver, sink,
+                                      device=device)
+        t0 = time.perf_counter()
+        if ramp_before:
+            ramp_play(mgr, anim, f"file://{path}", ramp_before)
+        else:
+            mgr.play_uri(f"file://{path}")
+            anim.run()
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        return sink, time.perf_counter() - t0, anim.batcher
+    finally:
+        mgr.quit()
+
+
+def realtime_play(path: str, device, n: int, limit_s: float = 30.0):
+    """Plays ``path`` through the port's PipelineManager with the default
+    PipelineInitParams into an AnimatorBasic(realtime=True, quantum_ms=5)
+    on ``device`` until its sink has ``n`` samples of the decoded track or
+    ``limit_s`` passed, then stops it.  Returns (the decoded track's samples
+    the sink got, the samples the starvation ramper put in between (its
+    flywheel ramp and silence while the decoded reservoir ran dry), the
+    animator, wall seconds); raises if the animator does not end.  A chunk
+    is the track's when it is the sample array of an audio event the pump
+    pushed into the decoded reservoir, which a unity gain passes through."""
+    from ohpipeline_tpu_torch import pipeline
+
+    mgr = pipeline.PipelineManager(device=device)
+    sink = Sink()
+    decoded = set()
+    push = mgr.pipeline.decoded.push
+
+    def recording_push(e):
+        if e.kind == "audio_pcm":
+            decoded.add(id(e.samples))
+        push(e)
+
+    mgr.pipeline.decoded.push = recording_push
+    anim = pipeline.AnimatorBasic(mgr.pipeline.predriver, sink,
+                                  quantum_ms=5, device=device,
+                                  realtime=True)
+
+    def track():
+        return [c for c in list(sink.chunks) if id(c) in decoded]
+
+    t0 = time.perf_counter()
+    try:
+        mgr.play_uri(f"file://{path}")
+        anim.start()
+        while sum(c.shape[1] for c in track()) < n and anim.is_alive() \
+                and time.perf_counter() - t0 < limit_s:
+            time.sleep(0.01)
+    finally:
+        anim.quit()
+        mgr.quit()
+        anim.join(10.0)
+    wall = time.perf_counter() - t0
+    if anim.is_alive():
+        raise AssertionError("the realtime animator did not end")
+    got = track()
+    pcm = (np.concatenate(got, axis=1) if got
+           else np.zeros((2, 0), np.int32))
+    return pcm, sink.samples - pcm.shape[1], anim, wall
+
+
+def count_calls(module, name: str, run) -> tuple:
+    """Runs run() with ``module.name`` wrapped, for that time only, to count
+    its calls.  Returns (run()'s result, the count)."""
+    real = getattr(module, name)
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        result = run()
+    finally:
+        setattr(module, name, real)
+    return result, calls[0]
+
+
+def render_phase(jobs, tracks, streams, device="cuda") -> tuple:
+    """Phase 17: the port's render path on ``device``, through
+    PipelineManager.play_uri, the codec controller, AnimatorBatch and its
+    RenderBatcher.  Phase 0's first CD and first 24-bit / 96 kHz streams
+    play bit-exact to the encoder input, with the LPC launches of a warm run
+    equal to the FLAC groups the plug-in resolved, the device's idle share
+    of a traced play and each play's wall; a play paused and played again
+    (both ramps through the RenderBatcher) equals the same play on the CPU
+    bit for bit; the ADTS assets are held to the CPU (<= 1 and <= 2 LSB) with
+    sbr_env launched; a 3 s cut of the CD track plays through a realtime
+    AnimatorBasic with the default params (its late quanta are printed).
+    Returns check_lpc's record for the LPC kernel on the first group's rows
+    of the render path."""
+    from ohpipeline_tpu_torch import _kernels
+    from ohpipeline_tpu_torch._host import encode_flac
+    from ohpipeline_tpu_torch.codecs import flac as flac_codec
+    from ohpipeline_tpu_torch.ops import lpc as lpc_ops
+    from ohpipeline_tpu_torch.tools import trace_call
+
+    hi = len(CD_SEEDS)                  # the first 24-bit / 96 kHz stream
+    render = []
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, i in (("cd", 0), ("hires", hi)):
+            paths[name] = os.path.join(tmp, f"{name}.flac")
+            with open(paths[name], "wb") as f:
+                f.write(streams[i])
+        # first plays: bit-exact, and the LPC rows of the first group
+        (sink, cd_first, _), seen = first_calls(
+            lpc_ops, ["lpc_synthesize"],
+            lambda: render_play(paths["cd"], device))
+        render_lpc = list(seen["lpc_synthesize"][0])
+        for name, i in (("cd", 0), ("hires", hi)):
+            if name != "cd":
+                sink, _, _ = render_play(paths[name], device)
+            if sink.pcm.shape != tracks[i].shape \
+                    or not np.array_equal(sink.pcm, tracks[i]):
+                raise AssertionError(f"render path {name}: output != "
+                                     f"encoder input")
+        # warm plays, with the kernels' launches of that run alone
+        _kernels.reset_launches()
+        walls, groups = {}, 0
+        for name in ("cd", "hires"):
+            (_sink, walls[name], _), n = count_calls(
+                flac_codec, "synthesise_batch",
+                lambda: render_play(paths[name], device))
+            groups += n
+        render_launches = dict(_kernels.launches)
+        if render_launches["lpc"] != groups or groups == 0:
+            raise AssertionError(f"render path: {render_launches['lpc']} lpc "
+                                 f"launches for {groups} FLAC groups")
+        for name, i in (("cd", 0), ("hires", hi)):
+            rate = jobs[i][2]
+            render.append(f"{name} {tracks[i].shape} bit-exact, warm wall "
+                          f"{walls[name]:.3f} s, "
+                          f"{tracks[i].shape[1] / rate / walls[name]:.1f} "
+                          f"decoded s per wall s")
+        print(f"phase 17: FLAC through PipelineManager.play_uri and "
+              f"AnimatorBatch on the card: {'; '.join(render)} (first CD "
+              f"play {cd_first:.3f} s); {groups} FLAC groups, launches "
+              f"{render_launches}")
+        _prof, _events, render_trace = trace_call(
+            lambda: render_play(paths["cd"], device))
+        print(f"phase 17: traced CD play {render_trace['wall_s']:.3f} s, "
+              f"device busy {render_trace['device_busy_ms']:.2f} ms, idle "
+              f"share {render_trace['idle_share']:.4f}")
+        # the pause and play ramps through RenderBatcher: card == CPU
+        ramp_card, _, batcher = render_play(paths["cd"], device,
+                                            ramp_before=4)
+        ramp_cpu, _, _ = render_play(paths["cd"], "cpu", ramp_before=4)
+        if batcher.gain_tiles == 0:
+            raise AssertionError("the ramp run rendered no non-unity tile")
+        if not np.array_equal(ramp_card.pcm, ramp_cpu.pcm):
+            raise AssertionError("ramp run on the card != on the CPU")
+        ramped = int((ramp_card.pcm != tracks[0]).any(0).sum())
+        print(f"phase 17: pause and play ramps: {ramp_card.pcm.shape} card "
+              f"== cpu bit for bit; {batcher.gain_tiles} non-unity tiles, "
+              f"{ramped} samples ramped")
+        # the ADTS plug-in through the pipeline, card against CPU
+        _kernels.reset_launches()
+        plays = []
+        for path, lsb_max in ((AAC_ASSET, 1), (HE_ASSET, 2)):
+            card, _, _ = render_play(path, device)
+            cpu, _, _ = render_play(path, "cpu")
+            ci, pi = card.infos[0], cpu.infos[0]
+            if card.pcm.shape != cpu.pcm.shape \
+                    or (ci.codec_name, ci.sample_rate) \
+                    != (pi.codec_name, pi.sample_rate):
+                raise AssertionError(f"render path {path}: card "
+                                     f"{card.pcm.shape} != cpu "
+                                     f"{cpu.pcm.shape}")
+            lsb = int(np.abs(card.pcm.astype(np.int64) - cpu.pcm).max())
+            if lsb > lsb_max:
+                raise AssertionError(f"render path {path}: card vs CPU "
+                                     f"{lsb} LSB")
+            plays.append(f"{os.path.basename(path)} ({ci.codec_name}) "
+                         f"{card.pcm.shape} <= {lsb} LSB")
+        aac_launches = {k: _kernels.launches[k] for k in ("sbr_env", "tns")}
+        if aac_launches["sbr_env"] <= 0:
+            raise AssertionError("the sbr_env kernel did not run on the "
+                                 "render path")
+        print(f"phase 17: ADTS through the pipeline, card vs cpu: "
+              f"{'; '.join(plays)}; launches {aac_launches} (the plug-in "
+              f"runs TNS in its host prep, as the JAX one does)")
+        # a short realtime run: AnimatorBasic with the default params
+        rt_track = tracks[0][:, :3 * 44100]
+        paths["rt"] = os.path.join(tmp, "rt.flac")
+        with open(paths["rt"], "wb") as f:
+            f.write(encode_flac(rt_track, 44100, 16))
+        rt_pcm, rt_fill, rt_anim, rt_wall = realtime_play(
+            paths["rt"], device, rt_track.shape[1])
+        if not np.array_equal(rt_pcm, rt_track[:, :rt_pcm.shape[1]]) \
+                or rt_pcm.shape[1] < rt_track.shape[1]:
+            raise AssertionError(f"realtime run delivered {rt_pcm.shape}, "
+                                 f"not the track")
+        print(f"phase 17: realtime AnimatorBasic (5 ms quanta, default "
+              f"params) delivered the 3 s track in {rt_wall:.3f} s, with "
+              f"{rt_fill} samples of starvation fill; late quanta "
+              f"{rt_anim.late_quanta}, worst lateness "
+              f"{rt_anim.worst_late_s * 1e3:.3f} ms")
+    return check_lpc("render path group 0", render_lpc, phase=17)
+
+
 def check_precision() -> None:
     import torch
 
@@ -1847,12 +2130,12 @@ def main() -> None:
                              "path")
     mp3_audio_s = sum(o.shape[1] for o in mp3_outs) / 44100.0
     mp3_lsb = 0
-    for name, card, streams in (
+    for name, card, batch in (
             ("bench", mp3_outs[:MP3_CPU_STREAMS], mstreams[:MP3_CPU_STREAMS]),
             ("block types", serve_mp3(content["mp3_blocks"])[0],
              content["mp3_blocks"]),
             ("LSF", serve_mp3(content["mp3_lsf"])[0], content["mp3_lsf"])):
-        cpu = decode_mp3_streams_device(streams, MP3_FRAMES_PER_GROUP,
+        cpu = decode_mp3_streams_device(batch, MP3_FRAMES_PER_GROUP,
                                         device="cpu")
         for s, (o, c) in enumerate(zip(card, cpu)):
             if o.shape != c.shape:
@@ -1860,7 +2143,7 @@ def main() -> None:
                                      f"{c.shape}")
             mp3_lsb = max(mp3_lsb, int(np.abs(o.astype(np.int64) - c).max()))
         if name != "bench":       # stream 0 through every block type
-            ref = mp3_host_reference(streams[0])
+            ref = mp3_host_reference(batch[0])
             ref_err = np.abs(card[0] - ref).max()
             ref_snr = snr_db(ref, card[0])
             if not (ref_err <= 6 and ref_snr >= 80.0):
@@ -2009,6 +2292,11 @@ def main() -> None:
           f"call {ps_trace['wall_s']:.3f} s, device busy "
           f"{ps_trace['device_busy_ms']:.1f} ms, idle share "
           f"{ps_trace['idle_share']:.4f}")
+    check_precision()
+
+    # --- phase 17: the render path on the card ---------------------------
+    lpc_render = render_phase(jobs, tracks, streams)
+    lpc_err = max(lpc_err, lpc_render[0])
     check_precision()
 
     def bounds(b, library_ms=None):

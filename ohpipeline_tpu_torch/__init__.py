@@ -2,15 +2,20 @@
 with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A second package beside the JAX one, which stays the reference; it imports
-nothing of it.  It holds the FLAC, AAC-LC, HE-AAC v1, CELT (Opus), MP3 and
-Vorbis serving paths and the flagship decode->render step:
+nothing of it.  It holds the FLAC, AAC-LC, HE-AAC v1 and v2, CELT (Opus),
+MP3 and Vorbis serving paths, the flagship decode->render step and the
+render path (a pipeline that plays a URI through the FLAC and ADTS AAC
+plug-ins into an animator):
 
 host       its own copies of the JAX package's host code: the C++ parsers
            (built into _build/ at first use), the FLAC metadata parser and
            encoder, AAC tables and ADTS bitstream reader, the SBR decoder
            and cond builder, the CELT entropy layer and Ogg Opus framing,
            the MP3 bitstream, encoder and numpy host prep, the Vorbis
-           packet decoder, host synthesis and stream builder
+           packet decoder, host synthesis and stream builder; the
+           pipeline's events, protocols, containers, host plug-ins (WAV,
+           AIFF, raw PCM, DSD), element chain, codec controller and
+           assembly
 _host      the names the port's modules use for those
 _kernels   nvcc build, ctypes binding and launch counters of csrc/*.cu
 ops        LPC synthesis (kernel + plain version) and PCM DSP
@@ -22,7 +27,11 @@ codecs     FLAC rice decode (kernel + plain version), group synthesis and
            synthesis (comb post-filter kernel + plain version) and its
            serving API; the MP3 hybrid filterbank (polyphase window kernel
            + plain version), group decode and serving API; the Vorbis
-           batched synthesis and its serving API
+           batched synthesis and its serving API; ``CodecFlac`` and
+           ``CodecAacAdts``, the plug-ins of ``default_registry(device)``
+pipeline   the render path: ``PipelineManager(device=...)`` and the
+           animators, whose ``RenderBatcher`` runs the gain pass on the
+           device
 parallel   the single-device decode->render step
 entry      entry(device) -> (fn, args) for that step
 tools      measurement scripts run on the card

@@ -9,8 +9,9 @@ loaded with ``ctypes``.  Each kernel has a
 plain C entry point that launches on the caller's stream and returns
 ``cudaGetLastError()``; the wrappers here check their tensors, launch on
 ``torch.cuda.current_stream()``, raise on a non-zero return and count the
-launch in :data:`launches`.  Nothing falls back: a missing ``nvcc`` or a
-failed build raises.
+launch in :data:`launches`.  Nothing falls back: a missing ``nvcc``, a
+failed build, a bad argument or a failed launch raises :class:`KernelError`
+(:class:`KernelArgumentError`, also a ``ValueError``, for a bad argument).
 """
 
 from __future__ import annotations
@@ -32,6 +33,42 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 #: nvcc flags of each source's compile step (the link adds ``-shared``).
 NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+
+
+class KernelError(RuntimeError):
+    """A kernel could not be built, was given arguments it does not take, or
+    failed to launch: a fault of the card or the build, never of a stream's
+    content."""
+
+
+class KernelArgumentError(KernelError, ValueError):
+    """A kernel wrapper was called with tensors its kernel does not take."""
+
+
+def is_device_fault(exc: BaseException) -> bool:
+    """True for a :class:`KernelError` and for what torch raises when an
+    operation on the card fails (``torch.AcceleratorError``, an out-of-memory
+    error, or a ``RuntimeError`` or assertion that names CUDA, as torch
+    raises when there is no card or driver)."""
+    if isinstance(exc, (KernelError, torch.cuda.OutOfMemoryError)):
+        return True
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    return isinstance(exc, (RuntimeError, AssertionError)) \
+        and "CUDA" in str(exc)
+
+
+def checked_device(device) -> torch.device:
+    """``torch.device(device)``; raises :class:`KernelError` for a CUDA device
+    when torch sees no card, so a caller that asked for the card never runs
+    on the CPU instead."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise KernelError(f"device {dev} asked for, but torch sees no CUDA "
+                          f"device")
+    return dev
+
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches = {"lpc": 0, "rice": 0, "tns": 0, "sbr_env": 0, "celt_comb": 0,
@@ -65,8 +102,8 @@ def _build() -> ctypes.CDLL:
     if not so.exists():
         nvcc = find_nvcc()
         if nvcc is None:
-            raise RuntimeError("nvcc not found (set CUDA_HOME or PATH); the "
-                               "port's CUDA kernels cannot be built")
+            raise KernelError("nvcc not found (set CUDA_HOME or PATH); the "
+                              "port's CUDA kernels cannot be built")
         _BUILD.mkdir(parents=True, exist_ok=True)
         tag = f"{digest.hexdigest()[:12]}.{os.getpid()}"
         objs = [_BUILD / f"{src.stem}-{tag}.o" for src in sources]
@@ -88,8 +125,8 @@ def _build() -> ctypes.CDLL:
                 build_log += link.stdout
                 failed = ["link"] if link.returncode != 0 else []
             if failed:
-                raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
-                                   f"{build_log}")
+                raise KernelError(f"nvcc failed ({', '.join(failed)}):\n"
+                                  f"{build_log}")
             os.replace(tmp, so)
         finally:
             for f in (*objs, tmp):
@@ -114,9 +151,9 @@ def _build() -> ctypes.CDLL:
     lib.ohp_ps_mix_scratch.argtypes = []
     lib.ohp_ps_mix_scratch.restype = i32
     if lib.ohp_ps_mix_scratch() != PS_SCRATCH:
-        raise RuntimeError(f"csrc/ps_mix.cu takes {lib.ohp_ps_mix_scratch()} "
-                           f"scratch floats a slot, PS_SCRATCH says "
-                           f"{PS_SCRATCH}")
+        raise KernelError(f"csrc/ps_mix.cu takes {lib.ohp_ps_mix_scratch()} "
+                          f"scratch floats a slot, PS_SCRATCH says "
+                          f"{PS_SCRATCH}")
     return lib
 
 
@@ -133,9 +170,10 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device,
            dtype=torch.int32) -> None:
     if t.device != device or t.dtype != dtype \
             or not t.is_contiguous() or tuple(t.shape) != shape:
-        raise ValueError(f"{name}: want contiguous {dtype} {shape} on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
-                         f"{t.device}")
+        raise KernelArgumentError(
+            f"{name}: want contiguous {dtype} {shape} on "
+            f"{device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}")
 
 
 def _stream(device) -> ctypes.c_void_p:
@@ -144,7 +182,7 @@ def _stream(device) -> ctypes.c_void_p:
 
 def _raise_on(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def lpc(data: torch.Tensor, coeffs: torch.Tensor, shift: torch.Tensor,
@@ -153,14 +191,15 @@ def lpc(data: torch.Tensor, coeffs: torch.Tensor, shift: torch.Tensor,
     warm-up, (B, 32) coefficients and (B,) shift and order, on the card."""
     dev = data.device
     if dev.type != "cuda":
-        raise ValueError(f"lpc kernel needs a CUDA tensor, got {dev}")
+        raise KernelArgumentError(f"lpc kernel needs a CUDA tensor, got {dev}")
     B, N = data.shape
     _check("data", data, (B, N), dev)
     _check("coeffs", coeffs, (B, 32), dev)
     _check("shift", shift, (B,), dev)
     _check("order", order, (B,), dev)
     if B >= 2 ** 31 or N >= 2 ** 31:
-        raise ValueError(f"lpc kernel takes int32 extents, got {B}x{N}")
+        raise KernelArgumentError(
+            f"lpc kernel takes int32 extents, got {B}x{N}")
     out = torch.empty_like(data)
     lib = library()
     with torch.cuda.device(dev):
@@ -179,10 +218,11 @@ def rice(words: torch.Tensor, cur: torch.Tensor, kk: torch.Tensor,
     rice parameter, mode and count, on the card."""
     dev = words.device
     if dev.type != "cuda":
-        raise ValueError(f"rice kernel needs a CUDA tensor, got {dev}")
+        raise KernelArgumentError(
+            f"rice kernel needs a CUDA tensor, got {dev}")
     (W,), U = words.shape, cur.shape[0]
     if W == 0:
-        raise ValueError("rice kernel needs a non-empty word slab")
+        raise KernelArgumentError("rice kernel needs a non-empty word slab")
     _check("words", words, (W,), dev)
     for name, t in (("cur", cur), ("kk", kk), ("mode", mode),
                     ("counts", counts)):
@@ -209,7 +249,7 @@ def tns(spec: torch.Tensor, tfi: torch.Tensor, tco: torch.Tensor,
     aligned."""
     dev = spec.device
     if dev.type != "cuda":
-        raise ValueError(f"tns kernel needs a CUDA tensor, got {dev}")
+        raise KernelArgumentError(f"tns kernel needs a CUDA tensor, got {dev}")
     TB, P = spec.shape[0], trow.shape[0]
     _check("spec", spec, (TB, 1024), dev, torch.float32)
     _check("tfi", tfi, (P, 1024), dev, torch.uint8)
@@ -218,7 +258,8 @@ def tns(spec: torch.Tensor, tfi: torch.Tensor, tco: torch.Tensor,
     _check("trow", trow, (P,), dev)
     for name, t in (("spec", spec), ("tfi", tfi), ("tco", tco)):
         if t.data_ptr() % 16:
-            raise ValueError(f"tns kernel: {name} is not 16-byte aligned")
+            raise KernelArgumentError(
+                f"tns kernel: {name} is not 16-byte aligned")
     lib = library()
     with torch.cuda.device(dev):
         rc = lib.ohp_tns_apply(spec.data_ptr(), TB, tfi.data_ptr(),
@@ -247,11 +288,13 @@ def sbr_env(gain, noise, sine, sine_bins, env_id, prev_id, last_env, r,
     M), filt, tail_r, tail_i)."""
     dev = gain.device
     if dev.type != "cuda":
-        raise ValueError(f"sbr_env kernel needs a CUDA tensor, got {dev}")
+        raise KernelArgumentError(
+            f"sbr_env kernel needs a CUDA tensor, got {dev}")
     C, F, _, M = gain.shape
     if F < 1 or C * F * SBR_SLOTS * M >= 2 ** 31:
-        raise ValueError(f"sbr_env kernel takes 1 <= F and C*F*38*M < 2^31, "
-                         f"got C={C} F={F} M={M}")
+        raise KernelArgumentError(
+            f"sbr_env kernel takes 1 <= F and C*F*38*M < 2^31, "
+            f"got C={C} F={F} M={M}")
     f32, i8, i32 = torch.float32, torch.int8, torch.int32
     for name, t in (("gain", gain), ("noise", noise), ("sine", sine),
                     ("sine_bins", sine_bins)):
@@ -309,20 +352,23 @@ def celt_comb(y: torch.Tensor, Tv: torch.Tensor, gt: torch.Tensor,
     tensors (out (R, F * 960), hist (R, 1026))."""
     dev = y.device
     if dev.type != "cuda":
-        raise ValueError(f"celt_comb kernel needs a CUDA tensor, got {dev}")
+        raise KernelArgumentError(
+            f"celt_comb kernel needs a CUDA tensor, got {dev}")
     R, W = y.shape
     S, F = Tv.shape[:2]
     if S == 0 or R % S or W != CELT_HLEN + F * CELT_N:
-        raise ValueError(f"celt_comb: {R} rows of {W} samples do not fit "
-                         f"{S} streams of {F} frames")
+        raise KernelArgumentError(
+            f"celt_comb: {R} rows of {W} samples do not fit "
+            f"{S} streams of {F} frames")
     if F * CELT_N >= 2 ** 31:
-        raise ValueError(f"celt_comb kernel takes int32 extents, got F={F}")
+        raise KernelArgumentError(
+            f"celt_comb kernel takes int32 extents, got F={F}")
     _check("y", y, (R, W), dev, torch.float32)
     _check("Tv", Tv, (S, F, 3), dev)
     _check("gt", gt, (S, F, 3, 3), dev, torch.float32)
     _check("win2", win2, (120,), dev, torch.float32)
     if y.data_ptr() % 8:
-        raise ValueError("celt_comb kernel: y is not 8-byte aligned")
+        raise KernelArgumentError("celt_comb kernel: y is not 8-byte aligned")
     out = torch.empty((R, F * CELT_N), dtype=torch.float32, device=dev)
     hist = torch.empty((R, CELT_HLEN), dtype=torch.float32, device=dev)
     lib = library()
@@ -354,23 +400,28 @@ def mp3_window(vfull: torch.Tensor, wnd: torch.Tensor,
     16-byte aligned (and so is the output it allocates)."""
     dev = vfull.device
     if dev.type != "cuda":
-        raise ValueError(f"mp3_window kernel needs a CUDA tensor, got {dev}")
+        raise KernelArgumentError(
+            f"mp3_window kernel needs a CUDA tensor, got {dev}")
     T, B = vfull.shape[0] - MP3_HIST, vfull.shape[1]
     if T <= 0 or T % MP3_SLOTS:
-        raise ValueError(f"mp3_window: {T} slots after the {MP3_HIST}-row "
-                         f"history is not a whole number of granules")
+        raise KernelArgumentError(
+            f"mp3_window: {T} slots after the {MP3_HIST}-row "
+            f"history is not a whole number of granules")
     if not 1 <= bit_depth <= 24:
-        raise ValueError(f"mp3_window kernel takes bit depths 1-24, got "
-                         f"{bit_depth}")
+        raise KernelArgumentError(
+            f"mp3_window kernel takes bit depths 1-24, got "
+            f"{bit_depth}")
     Tg = T // MP3_SLOTS
     if vfull.numel() >= 2 ** 31 or Tg * B * 576 >= 2 ** 31 \
             or B > 65535:
-        raise ValueError(f"mp3_window kernel takes int32 extents and at most "
-                         f"65535 channels, got Tg={Tg} B={B}")
+        raise KernelArgumentError(
+            f"mp3_window kernel takes int32 extents and at most "
+            f"65535 channels, got Tg={Tg} B={B}")
     _check("vfull", vfull, (MP3_HIST + T, B, 64), dev, torch.float32)
     _check("wnd", wnd, (16, 32), dev, torch.float32)
     if vfull.data_ptr() % 16:
-        raise ValueError("mp3_window kernel: vfull is not 16-byte aligned")
+        raise KernelArgumentError(
+            "mp3_window kernel: vfull is not 16-byte aligned")
     out = torch.empty((Tg, B, 576), dtype=torch.int32, device=dev)
     lib = library()
     with torch.cuda.device(dev):
@@ -405,11 +456,13 @@ def ps_mix(mr: torch.Tensor, mi: torch.Tensor, H: torch.Tensor,
     new tensors (Lr, Li, Rr, Ri (C, S, 73), carry)."""
     dev = mr.device
     if dev.type != "cuda":
-        raise ValueError(f"ps_mix kernel needs a CUDA tensor, got {dev}")
+        raise KernelArgumentError(
+            f"ps_mix kernel needs a CUDA tensor, got {dev}")
     C, S = mr.shape[:2]
     if not (1 <= C <= 65535 and 1 <= S and S * PS_CH < 2 ** 31):
-        raise ValueError(f"ps_mix kernel takes 1 <= C <= 65535 and 1 <= S "
-                         f"with S*73 < 2^31, got C={C} S={S}")
+        raise KernelArgumentError(
+            f"ps_mix kernel takes 1 <= C <= 65535 and 1 <= S "
+            f"with S*73 < 2^31, got C={C} S={S}")
     f32 = torch.float32
     _check("mr", mr, (C, S, PS_CH), dev, f32)
     _check("mi", mi, (C, S, PS_CH), dev, f32)

@@ -1,17 +1,27 @@
-"""Stream readers, codec errors and the codec plug-in model of the port's
-host code.
+"""Codec plug-in model.
 
-The part of the JAX package's ``codecs/base.py`` that ``containers/ogg.py``,
-``codecs/opus/celt.py``, ``codecs/opus/packet.py`` and the AAC plug-in
-(``ohpipeline_tpu_torch.codecs.aac.CodecAacAdts``) reach: the errors, the
-byte-stream readers, ``DecodedBatch`` and ``CodecBase``.  The registry is
-not copied.
+Parity target: the reference's `CodecBase`/`ICodecController`
+(OpenHome/Media/Codec/CodecController.h:272,29) — recognition over a
+rewindable window, StreamInitialise, a Process loop, TrySeek — recast for a
+host-parse/device-synthesize split:
+
+* `recognise(header)` — sniff a byte window (the reference's Rewinder-backed
+  recognition, CodecController.cpp:362-388).
+* `stream_initialise(reader)` — parse headers, return `PcmStreamInfo`.
+* `process(reader)` — decode the next chunk; returns a `DecodedBatch` of
+  host arrays (ready to batch onto device) or raises `EndOfStream`.
+* `try_seek(sample)` — map a sample position to a byte position.
+
+Codecs that decode dense math on device (FLAC/ALAC/MP3/AAC...) return
+*parameter batches* (residuals/coefficients/spectra) via `DecodedBatch.defer`
+so the pipeline can coalesce many streams into one device dispatch; simple
+PCM codecs return samples directly.
 """
 
 from __future__ import annotations
 
 import abc
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -132,3 +142,28 @@ class CodecBase(abc.ABC):
     def try_seek(self, sample: int) -> Optional[int]:
         """Sample index -> byte position, or None if unseekable."""
         return None
+
+
+class CodecRegistry:
+    """Ordered codec registry (reference CodecFactory + CodecController's
+    recognition loop)."""
+
+    def __init__(self):
+        self._codecs: list[Callable[[], CodecBase]] = []
+
+    def add(self, factory: Callable[[], CodecBase]) -> None:
+        self._codecs.append(factory)
+
+    def instantiate(self) -> list[CodecBase]:
+        cs = [f() for f in self._codecs]
+        cs.sort(key=lambda c: c.recognition_cost)
+        return cs
+
+    def recognise(self, header: bytes) -> Optional[CodecBase]:
+        for codec in self.instantiate():
+            if codec.recognise(header):
+                return codec
+        return None
+
+
+default_registry = CodecRegistry()

@@ -1,2 +1,5 @@
-"""The pipeline timebase and stream description of the port's host code
-(``jiffies.py`` and ``streaminfo.py``, byte copies of the JAX package's)."""
+from .jiffies import Jiffies
+from .streaminfo import PcmStreamInfo, SampleFormat
+from . import events
+
+__all__ = ["Jiffies", "PcmStreamInfo", "SampleFormat", "events"]

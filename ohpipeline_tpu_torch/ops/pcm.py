@@ -50,12 +50,14 @@ def apply_gain(tile, ramp_start, ramp_end, gain):
 
     ramp_start, ramp_end, gain: (B,) float32.  Sample n of N gets
     start + (end - start) * n / N, times gain, rounded half to even.  The
-    float32 operations run in the JAX package's order, with the ramp line's
-    multiply-add fused as XLA fuses it, so the result is bit-exact with it.
-    Unity rows pass through unchanged.
+    float32 operations run in the JAX package's order, as XLA compiles them:
+    n / N as n times the float32 reciprocal of N (XLA's rewrite of a
+    division by a constant), and the ramp line's multiply-add fused, so the
+    result is bit-exact with it.  Unity rows pass through unchanged.
     """
     B, C, N = tile.shape
-    t = torch.arange(N, dtype=torch.float32, device=tile.device) / N
+    recip = float(np.float32(1.0) / np.float32(max(N, 1)))
+    t = torch.arange(N, dtype=torch.float32, device=tile.device) * recip
     line = fma32((ramp_end - ramp_start)[:, None], t[None, :],
                  ramp_start[:, None])
     g = line * gain[:, None]

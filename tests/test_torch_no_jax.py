@@ -1,7 +1,7 @@
 """The port stands alone: it decodes FLAC, AAC-LC, HE-AAC v1 (serving, and the
 ADTS codec plug-in), HE-AAC v2 groups (the parametric-stereo runner), CELT,
-MP3 and Vorbis and runs the flagship step with every import of jax and of
-ohpipeline_tpu failing, in
+MP3 and Vorbis, runs the flagship step and plays a FLAC file through its
+pipeline with every import of jax and of ohpipeline_tpu failing, in
 the repository and in a directory that holds only the port, chip_smoke.py and
 the test assets; no module of ohpipeline_tpu is ever loaded; its HE path
 parses every SBR payload natively; its copies of the JAX package's .cc,
@@ -106,6 +106,14 @@ _BLOCKED = textwrap.dedent("""
         c["specs"], c["ops"], c["datas"], c["Es"], c["Qs"], c["ps"],
         np.zeros(1024, np.float32))()
     assert pcm.shape == (2, 8 * 2048) and pcm.any()
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = tmp + "/t.flac"
+        with open(path, "wb") as f:
+            f.write(data)
+        sink, _wall, _batcher = chip_smoke.render_play(path, "cpu")
+    assert sink.infos[0].codec_name == "FLAC" and (sink.pcm == x).all()
     loaded = [m for m in sys.modules if m == "ohpipeline_tpu"
               or m.startswith("ohpipeline_tpu.")]
     assert loaded == ["ohpipeline_tpu"], loaded     # the blocking None
@@ -161,7 +169,19 @@ def test_copied_sources_and_tables_are_the_originals():
 
 
 #: Host files the port copies whole (its other .py copies are in part).
-PY_COPIES = ("core/jiffies.py", "core/streaminfo.py")
+PY_COPIES = (
+    "core/__init__.py", "core/jiffies.py", "core/streaminfo.py",
+    "core/events.py", "core/ramp.py",
+    "codecs/base.py", "codecs/wav.py", "codecs/aiff.py", "codecs/pcm_raw.py",
+    "codecs/dsd.py",
+    "containers/__init__.py", "containers/base.py", "containers/id3v2.py",
+    "containers/mpegts.py", "containers/mpeg4.py",
+    "protocols/__init__.py", "protocols/base.py", "protocols/file.py",
+    "protocols/tone.py", "protocols/hls.py", "protocols/dash.py",
+    "protocols/rtsp.py",
+    "pipeline/elements.py", "pipeline/control.py", "pipeline/reservoirs.py",
+    "pipeline/supply.py", "pipeline/filler.py", "pipeline/starvation.py",
+    "pipeline/latency.py", "pipeline/observer.py")
 
 
 @pytest.mark.parametrize("rel", PY_COPIES)
@@ -227,6 +247,12 @@ def test_the_static_check_sees_what_it_should(tmp_path):
                    "    q = 'ohpipeline_tpu/ops/lpc.py:131'\n")
     faults = _faults(bad)
     assert len(faults) == 4, faults       # text, two imports, one path
+    # the JAX files the render path's copies come from carry JAX text; the
+    # port's copy of one and its own animators do not
+    for rel in ("pipeline/branch.py", "pipeline/animator.py"):
+        assert _faults(REPO / "ohpipeline_tpu" / rel), rel
+    assert not _faults(PORT / "host" / "pipeline" / "branch.py")
+    assert not _faults(PORT / "pipeline" / "animator.py")
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -62,6 +62,15 @@ def test_apply_gain(bits):
     _equal(*_both("apply_gain", tile, *_gain_case(rng)))
 
 
+@pytest.mark.parametrize("N", [2047, 2918, 5666])
+def test_apply_gain_at_widths_whose_reciprocal_is_inexact(N):
+    """XLA compiles n / N as n * float32(1 / N); at these widths that
+    differs from a division in hundreds of positions of the ramp line."""
+    rng = np.random.default_rng(N)
+    tile = _tile(rng, N=N, bits=24)
+    _equal(*_both("apply_gain", tile, *_gain_case(rng)))
+
+
 def _round_f32(x: Fraction) -> np.float32:
     """Exact value -> nearest float32, ties to even."""
     f = np.float32(float(x))
@@ -166,3 +175,35 @@ def test_card_matches_cpu_bit_for_bit(name, cuda):
     got = fn(*(torch.from_numpy(a).to(cuda) for a in args))
     assert got.device.type == "cuda" and got.dtype == want.dtype
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+PACK_CASES = [(bits, be, True, False) for bits in (8, 16, 24, 32)
+              for be in (False, True)] + [(8, False, False, False),
+                                          (32, False, True, True),
+                                          (64, True, True, True)]
+
+
+@pytest.mark.parametrize("bits,big_endian,signed,float_format", PACK_CASES)
+def test_host_byte_packers_match_jax(bits, big_endian, signed,
+                                     float_format):
+    """The port's host copy of the byte packers (host/ops/pcm.py, which the
+    WAV, AIFF and raw PCM plug-ins use) against the JAX package's, byte for
+    byte: unpack from seeded bytes, pack back (floats unpack to 24-bit)."""
+    from ohpipeline_tpu_torch.host.ops import pcm as hpcm
+
+    jpcm = _jpcm()
+    rng = np.random.default_rng(bits + 2 * big_endian + 4 * signed)
+    if float_format:
+        dt = (">" if big_endian else "<") + ("f4" if bits == 32 else "f8")
+        data = rng.uniform(-1.1, 1.1, 600).astype(dt).tobytes()
+    else:
+        data = rng.integers(0, 256, 600 * bits // 8, dtype=np.uint8).tobytes()
+    kw = dict(big_endian=big_endian, signed=signed, float_format=float_format)
+    got = hpcm.unpack_pcm_bytes(data, bits, 2, **kw)
+    want = jpcm.unpack_pcm_bytes(data, bits, 2, **kw)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    out_bits = 24 if float_format else bits
+    assert hpcm.pack_pcm_bytes(got, out_bits, big_endian) \
+        == jpcm.pack_pcm_bytes(want, out_bits, big_endian)
+    assert hpcm.native_limits(out_bits) == jpcm.native_limits(out_bits)
