@@ -137,7 +137,23 @@ Phases, each ending in torch.cuda.synchronize():
      AnimatorBasic (5 ms quanta, default params) over a 3 s cut of the CD
      track, which must end and deliver the track (late quanta printed, no
      gate); and the LPC kernel against its plain version at the render
-     path's shape (the first group's rows, 32 x 4096), timed.
+     path's shape (the first group's rows, 32 x 4096), timed;
+ 18. the other plug-ins through the render path (plugin_phase): phase 13's
+     first MP3 stream (8 s CBR) and the same frames behind a Xing frame
+     (CodecMp3 on the mp3_window kernel), dryrun.aac's and dryrun_he.aac's
+     frames in M4As (CodecAacMp4: AAC-LC, and HE-AAC with the explicit
+     AOT-5 config, on the SBR kernel), phase 14's first mixed-block Vorbis
+     stream, dryrun.opus and its packets in an M4A, ALAC escape frames of a
+     seeded tone in an M4A and seeded SILK-mode Opus packets in Ogg (the
+     host plug-ins), each through PipelineManager(device="cuda").play_uri
+     and an AnimatorBatch and again on the CPU: the card within 1 LSB of
+     the CPU (2 for HE-AAC, equal for the host plug-ins), ALAC equal to its
+     input, mp3_window launched once a CodecMp3 group (ceil(frames / 16)),
+     sbr_env on the HE file, no tns on the LC file (the plug-ins run TNS in
+     their host prep); each warm play's decoded s per wall s; the Xing file
+     through CodecMp3 with a seek to 4 s after 3 groups, card against CPU;
+     a traced MP3 play's idle share; and the mp3_window kernel against its
+     plain version at the plug-in's group shape (32 granules), timed.
 
 A kernel's time is the mean of 20 launches captured in one CUDA graph
 (kernel_ms: a launch from Python takes longer on the host than a short
@@ -146,7 +162,9 @@ CUDA events (cuda_ms).  Each kernel's record carries its bound: the larger
 of the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
 tensor cores), the published peaks of an H100 SXM at 700 W, from this run's
-inputs.  No single PyTorch call computes the recurrences of the LPC,
+inputs, and whether the plays of the render path that phases 17-18
+count launched it and how often (on_render_path, render_launches).  No single
+PyTorch call computes the recurrences of the LPC,
 rice, TNS, SBR-envelope, CELT-comb and PS kernels, so their library_ms
 is null; the MP3 window pass's is the time
 of one grouped conv1d (cuDNN, TF32 off) plus the pair-add, the one PyTorch
@@ -170,6 +188,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from typing import Optional
 
 import numpy as np
 
@@ -206,6 +226,10 @@ VORBIS_CPU_STREAMS = 4
 PS_STREAMS = 16                       # the HE-AAC v1 serving width
 PS_GROUP = 96                         # the plug-in's SBR_GROUP_FRAMES
 PS_FRAMES = 2 * PS_GROUP              # frames a PS stream
+MP3_SEEK_S = 4.0                      # phase 18: where the Xing play seeks
+ALAC_FRAME = 4096                     # samples an ALAC packet
+ALAC_SECONDS = 2.0
+SILK_PACKETS = 60
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM, 700 W
 FP32_OPS_PER_S = 67e12
 
@@ -1185,7 +1209,7 @@ def mp3_window_library(vfull, wnd):
 
 
 def check_mp3_window(name, vfull, wnd, bit_depth: int,
-                     library: bool = False):
+                     library: bool = False, phase: int = 12):
     """mp3_window kernel against mp3_window_torch on the card, <= 1 LSB;
     with ``library`` also times the conv1d formulation
     (mp3_window_library) and holds its rounded result to the plain
@@ -1227,7 +1251,7 @@ def check_mp3_window(name, vfull, wnd, bit_depth: int,
     b_ms, b_by = bound(nbytes(vfull, wnd, got), 32 * got.numel())
     clipped = float(((want == int(lim) - 1) | (want == -int(lim)))
                     .float().mean())
-    print(f"phase 12: mp3_window {name}: Tg={Tg} B={B} bit depth "
+    print(f"phase {phase}: mp3_window {name}: Tg={Tg} B={B} bit depth "
           f"{bit_depth}: <= {err} LSB against plain, {n_diff} of "
           f"{got.numel()} samples differ, {clipped:.3f} at a clip end; "
           f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms{lib_note}, bound "
@@ -1630,6 +1654,329 @@ def count_calls(module, name: str, run) -> tuple:
     return result, calls[0]
 
 
+def mp3_with_xing(data: bytes) -> bytes:
+    """``data`` (CBR MP3 frames) behind a Xing frame, made as
+    tests/test_mp3_vbr_seek.py makes it: the stream's first frame with a
+    Xing header (frame count, byte count and a linear TOC, which is true of
+    CBR content) written over its main data.  A player reads the duration
+    from it, seeks through the TOC and decodes no audio from it."""
+    from ohpipeline_tpu_torch._host import mp3_bitstream as BS
+
+    hdr = BS.parse_frame_header(data)
+    frames = pos = 0
+    while True:
+        h = BS.parse_frame_header(data, pos)
+        if h is None or pos + h.frame_bytes > len(data):
+            break
+        frames += 1
+        pos += h.frame_bytes
+    frame = bytearray(data[:hdr.frame_bytes])
+    side = 32 if (hdr.version == 1 and hdr.channels == 2) else (
+        17 if hdr.version == 1 or hdr.channels == 2 else 9)
+    xing = (b"Xing" + (1 | 2 | 4).to_bytes(4, "big")
+            + frames.to_bytes(4, "big")
+            + (hdr.frame_bytes + len(data)).to_bytes(4, "big")
+            + bytes(min(255, int(i * 2.56)) for i in range(100)))
+    frame[4 + side:4 + side + len(xing)] = xing
+    return bytes(frame) + data
+
+
+def aac_asc(rate_index: int, channels: int, sbr: bool = False) -> bytes:
+    """An AudioSpecificConfig: AOT 2 (AAC-LC) at the core's rate, or with
+    ``sbr`` the explicit AOT-5 hierarchy (the extension at twice the core
+    rate, then core AOT 2), as tests/test_sbr.py:256-260 builds it."""
+    if sbr:
+        bits = (f"00101{rate_index:04b}{channels:04b}{rate_index - 3:04b}"
+                f"00010000")
+    else:
+        bits = f"00010{rate_index:04b}{channels:04b}000"
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def m4a_from_adts(path: str, sbr: bool = False) -> bytes:
+    """The raw frames of the ADTS file ``path`` in an M4A
+    (host/containers/mpeg4.write_m4a) at the core's rate, with an AAC-LC
+    config (for an HE-AAC core the implicit signalling: the decoder finds
+    SBR in the first sample), or with ``sbr`` the explicit AOT-5 config."""
+    from ohpipeline_tpu_torch._host import aac_bitstream as BS
+    from ohpipeline_tpu_torch._host import aac_tables
+    from ohpipeline_tpu_torch.host.containers.mpeg4 import write_m4a
+
+    with open(path, "rb") as f:
+        data = f.read()
+    frames, pos, hdr = [], 0, None
+    while (h := BS.parse_adts_header(data, pos)) is not None:
+        hdr = h
+        frames.append(data[pos + h.header_bytes:pos + h.frame_bytes])
+        pos += h.frame_bytes
+    asc = aac_asc(hdr.rate_index, hdr.channels, sbr)
+    return write_m4a(frames, asc, aac_tables.SAMPLE_RATES[hdr.rate_index],
+                     hdr.channels)
+
+
+def opus_mp4(ogg_data: bytes) -> bytes:
+    """The audio packets of an Ogg Opus stream muxed into an M4A with a dOps
+    box made from its OpusHead, as tests/test_opus_mp4.py:62-78 does."""
+    from ohpipeline_tpu_torch._host import base, ogg, opus_headers
+    from ohpipeline_tpu_torch.host.containers.mpeg4 import write_m4a
+
+    head_pk, _tags, *audio = ogg.OggReader(
+        base.BufferReader(ogg_data)).packets()
+    head = opus_headers.parse_opus_head(head_pk)
+    dops = (bytes([0, head.channels]) + head.pre_skip.to_bytes(2, "big")
+            + head.input_rate.to_bytes(4, "big")
+            + head.output_gain_q8.to_bytes(2, "big", signed=True)
+            + bytes([head.mapping_family]))
+    return write_m4a(audio, dops, 48000, head.channels, codec="Opus",
+                     samples_per_frame=960)
+
+
+def alac_escape_packet(pcm: np.ndarray) -> bytes:
+    """One ALAC packet holding ``pcm`` ((channels, n) int16 range, n at most
+    ALAC_FRAME) as an escape (verbatim) element, SCE or CPE, with the
+    sample count written when the packet is short, then END."""
+    nch, n = pcm.shape
+
+    def bits(v: int, width: int) -> np.ndarray:
+        return (v >> np.arange(width - 1, -1, -1)) & 1
+
+    partial = n < ALAC_FRAME
+    head = [bits(1 if nch == 2 else 0, 3), bits(0, 4), bits(0, 12),
+            bits(8 * partial + 1, 4)]           # partial, no shift, escape
+    if partial:
+        head.append(bits(n, 32))
+    body = np.unpackbits(np.ascontiguousarray(pcm.T).astype(">i2")
+                         .view(np.uint8))
+    stream = np.concatenate([*head, body, bits(7, 3)]).astype(np.uint8)
+    return np.packbits(stream).tobytes()
+
+
+def alac_escape_stream(seed: int, seconds: float = ALAC_SECONDS,
+                       rate: int = 44100) -> tuple:
+    """A seeded stereo tone (a sine a channel at seeded pitch and level,
+    plus noise) as ALAC escape packets of ALAC_FRAME samples in an M4A.
+    Returns (the M4A bytes, the (2, n) int32 PCM it holds).  The repository
+    has no ALAC encoder, and escape frames are the ALAC frames a test can
+    write."""
+    import struct
+
+    from ohpipeline_tpu_torch.host.containers.mpeg4 import write_m4a
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    pcm = np.stack([rng.uniform(4000, 20000)
+                    * np.sin(2 * np.pi * rng.uniform(200, 2000) * t)
+                    + rng.normal(0, 300, t.size) for _ in range(2)])
+    pcm = np.clip(np.rint(pcm), -32768, 32767).astype(np.int32)
+    packets = [alac_escape_packet(pcm[:, i:i + ALAC_FRAME])
+               for i in range(0, pcm.shape[1], ALAC_FRAME)]
+    cookie = struct.pack(">IBBBBBBHIII", ALAC_FRAME, 0, 16, 40, 10, 14, 2,
+                         255, 0, 0, rate)
+    return write_m4a(packets, cookie, rate, 2, codec="alac",
+                     samples_per_frame=ALAC_FRAME), pcm
+
+
+def silk_packets(seed: int, n: int = SILK_PACKETS) -> list:
+    """Seeded SILK-only Opus packets, one frame each: packet k's TOC config
+    is k mod 12 (NB, MB and WB at 10, 20, 40 and 60 ms), its stereo flag
+    and its 20-100 payload bytes come from the seed.  The range decoder
+    reads any bytes as SILK parameters; the repository has no SILK
+    encoder."""
+    rng = np.random.default_rng(seed)
+    return [bytes([(k % 12) << 3 | int(rng.integers(0, 2)) << 2])
+            + rng.integers(0, 256, int(rng.integers(20, 101)),
+                           dtype=np.uint8).tobytes() for k in range(n)]
+
+
+def opus_ogg(packets: list, channels: int = 2, pre_skip: int = 312,
+             serial: int = 1) -> bytes:
+    """Opus ``packets`` in an Ogg stream behind an OpusHead (family 0) and
+    an OpusTags packet, the last page's granule their length plus the
+    pre-skip."""
+    from ohpipeline_tpu_torch._host import ogg, opus_headers
+
+    head = (b"OpusHead" + bytes([1, channels])
+            + pre_skip.to_bytes(2, "little") + (48000).to_bytes(4, "little")
+            + bytes(3))
+    vendor = b"ohpipeline_tpu_torch"
+    tags = (b"OpusTags" + len(vendor).to_bytes(4, "little") + vendor
+            + bytes(4))
+    granule = pre_skip + sum(opus_headers.packet_samples(p)
+                             for p in packets)
+    return (ogg.build_pages(serial, [head], bos=True)
+            + ogg.build_pages(serial, [tags], first_sequence=1)
+            + ogg.build_pages(serial, packets, first_sequence=2,
+                              granule=granule, eos=True))
+
+
+def plugin_run(codec, data: bytes, seek: Optional[tuple] = None,
+               eos=None) -> tuple:
+    """Runs the codec plug-in ``codec`` (the port's, or with ``eos`` its
+    EndOfStream class, the JAX package's) over ``data`` as the codec
+    controller does: stream_initialise, then process() and each batch's
+    resolve() to the end of the stream.  With ``seek`` (batches before it,
+    sample), after that many batches it calls try_seek(sample) and moves the
+    reader to the byte returned, as the controller and a seekable protocol
+    do.  Returns (stream info, [(track offset, (channels, n) PCM) of each
+    batch])."""
+    from ohpipeline_tpu_torch.host.codecs.base import (BufferReader,
+                                                       EndOfStream)
+
+    eos = eos or EndOfStream
+    reader = BufferReader(data)
+    info = codec.stream_initialise(reader)
+    out = []
+    while True:
+        if seek and len(out) == seek[0]:
+            byte = codec.try_seek(seek[1])
+            if byte is None or not reader.try_seek_bytes(byte):
+                raise AssertionError(f"seek to sample {seek[1]} refused")
+        try:
+            batch = codec.process(reader)
+        except eos:
+            return info, out
+        out.append((batch.track_offset_samples, batch.resolve()))
+
+
+#: phase 18's files: name -> card vs CPU gate in LSB (0 for the host-only
+#: plug-ins, whose output must not depend on the device)
+PLUGIN_GATES = {"mp3": 1, "mp3_xing": 1, "m4a_lc": 1, "m4a_he": 2,
+                "vorbis": 0, "opus": 0, "opus_mp4": 0, "alac": 0, "silk": 0}
+
+
+def plugin_files(content: dict) -> tuple:
+    """Phase 18's content, each as the bytes of a file: phase 13's first MP3
+    stream (8 s CBR) and the same frames behind a Xing frame; dryrun.aac's
+    89 frames (AAC-LC, ASC 0x12 0x10) and dryrun_he.aac's 46 (the explicit
+    AOT-5 ASC) in M4As; phase 14's first mixed-block Vorbis stream;
+    dryrun.opus, and its packets in an M4A with a dOps box; a seeded stereo
+    tone as ALAC escape frames in an M4A; seeded SILK-mode Opus packets in
+    Ogg.  Returns ({name: bytes}, the ALAC file's PCM)."""
+    with open(CELT_ASSET, "rb") as f:
+        opus = f.read()
+    alac, alac_pcm = alac_escape_stream(0)
+    mp3 = content["mp3"][0]
+    return {"mp3": mp3, "mp3_xing": mp3_with_xing(mp3),
+            "m4a_lc": m4a_from_adts(AAC_ASSET),
+            "m4a_he": m4a_from_adts(HE_ASSET, True),
+            "vorbis": content["vorbis"][VORBIS_STREAMS // 2], "opus": opus,
+            "opus_mp4": opus_mp4(opus), "alac": alac,
+            "silk": opus_ogg(silk_packets(0))}, alac_pcm
+
+
+def plugin_phase(content: dict, device="cuda") -> tuple:
+    """Phase 18: every other plug-in of the registry through the render
+    path.  Each of plugin_files' files plays through
+    PipelineManager(device).play_uri and an AnimatorBatch on the card and
+    on the CPU: the same stream info and length, the card within
+    PLUGIN_GATES of the CPU (equal for the host-only plug-ins), the ALAC
+    file equal to its input.  A warm play of each gives its decoded s per
+    wall s and its kernels' launches: mp3_window once a CodecMp3 group
+    (ceil(frames / 16)), sbr_env on the HE M4A, no tns on the LC M4A (the
+    plug-in runs TNS in its host prep).  The Xing file is decoded through
+    CodecMp3 with a seek to MP3_SEEK_S after 3 groups (plugin_run), card
+    against CPU; a traced MP3 play gives the card's idle share.  Returns
+    (check_mp3_window's record at the plug-in's group shape, the launches
+    of all the warm plays)."""
+    from ohpipeline_tpu_torch import _kernels
+    from ohpipeline_tpu_torch._host import mp3_bitstream
+    from ohpipeline_tpu_torch.codecs import mp3 as mp3_codec
+    from ohpipeline_tpu_torch.codecs.mp3 import synthesis as msyn
+    from ohpipeline_tpu_torch.tools import trace_call
+
+    files, alac_pcm = plugin_files(content)
+    mp3_frames = 0
+    stream = mp3_bitstream.Mp3Stream(files["mp3"])
+    while stream.next_frame() is not None:
+        mp3_frames += 1
+    mp3_groups = -(-mp3_frames // mp3_codec.GROUP_FRAMES)
+    launches = {k: 0 for k in _kernels.launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, data in files.items():
+            paths[name] = os.path.join(tmp, name)
+            with open(paths[name], "wb") as f:
+                f.write(data)
+        (first, _, _), seen = first_calls(
+            msyn, ["mp3_window"], lambda: render_play(paths["mp3"], device))
+        plays = []
+        for name, gate in PLUGIN_GATES.items():
+            card = first if name == "mp3" else render_play(paths[name],
+                                                           device)[0]
+            cpu = render_play(paths[name], "cpu")[0]
+            ci, pi = card.infos[0], cpu.infos[0]
+            if card.pcm.shape != cpu.pcm.shape or ci != pi \
+                    or not card.pcm.any():
+                raise AssertionError(f"phase 18 {name}: card "
+                                     f"{card.pcm.shape} {ci} != cpu "
+                                     f"{cpu.pcm.shape} {pi}")
+            lsb = int(np.abs(card.pcm.astype(np.int64) - cpu.pcm).max())
+            if lsb > gate:
+                raise AssertionError(f"phase 18 {name}: card vs CPU {lsb} "
+                                     f"LSB, gate {gate}")
+            if name == "alac" and not np.array_equal(card.pcm, alac_pcm):
+                raise AssertionError("phase 18 alac: output != its input")
+            # a warm play: its wall and its launches alone
+            before = dict(_kernels.launches)
+            (warm, wall, _), groups = count_calls(
+                mp3_codec, "decode_frames_lazy",
+                lambda: render_play(paths[name], device))
+            got = {k: _kernels.launches[k] - before[k] for k in before}
+            for k, v in got.items():
+                launches[k] += v
+            if not np.array_equal(warm.pcm, card.pcm):
+                raise AssertionError(f"phase 18 {name}: warm play != first")
+            if name.startswith("mp3") and not (
+                    got["mp3_window"] == groups == mp3_groups):
+                raise AssertionError(f"phase 18 {name}: {got['mp3_window']} "
+                                     f"mp3_window launches for {groups} "
+                                     f"groups, want {mp3_groups}")
+            if name == "m4a_he" and got["sbr_env"] <= 0:
+                raise AssertionError("phase 18: sbr_env did not run on the "
+                                     "HE M4A")
+            if name == "m4a_lc" and got["tns"] != 0:
+                raise AssertionError(f"phase 18: {got['tns']} tns launches "
+                                     f"on the LC M4A")
+            secs = card.pcm.shape[1] / ci.sample_rate
+            plays.append(f"{name} ({ci.codec_name}, {ci.num_channels} ch, "
+                         f"{secs:.2f} s) <= {lsb} LSB, warm "
+                         f"{secs / wall:.1f} decoded s per wall s, launches "
+                         f"{ {k: v for k, v in got.items() if v} }")
+        print("phase 18: through PipelineManager.play_uri and AnimatorBatch, "
+              "card vs cpu: " + "; ".join(plays))
+        # a seek through the plug-in, card against CPU
+        target = int(MP3_SEEK_S * first.infos[0].sample_rate)
+        spf = mp3_bitstream.parse_frame_header(files["mp3"]).samples_per_frame
+        runs = {}
+        for dev in (device, "cpu"):
+            runs[dev] = plugin_run(mp3_codec.CodecMp3(device=dev),
+                                   files["mp3_xing"], seek=(3, target))[1]
+        card_run, cpu_run = runs[device], runs["cpu"]
+        offs = [o for o, _ in card_run]
+        if offs != [o for o, _ in cpu_run] or offs[3] != target // spf * spf \
+                or any(a.shape != b.shape for (_, a), (_, b)
+                       in zip(card_run, cpu_run)):
+            raise AssertionError(f"phase 18 seek: card offsets {offs}, cpu "
+                                 f"{[o for o, _ in cpu_run]}")
+        seek_lsb = max(int(np.abs(a.astype(np.int64) - b).max())
+                       for (_, a), (_, b) in zip(card_run, cpu_run))
+        if seek_lsb > 1:
+            raise AssertionError(f"phase 18 seek: card vs CPU {seek_lsb} LSB")
+        print(f"phase 18: CodecMp3 over the Xing file with a seek to "
+              f"{MP3_SEEK_S} s after 3 groups: {len(offs)} groups, the "
+              f"first after the seek at sample {offs[3]}, card vs cpu <= "
+              f"{seek_lsb} LSB")
+        _prof, _events, trace = trace_call(
+            lambda: render_play(paths["mp3"], device))
+        print(f"phase 18: traced MP3 play {trace['wall_s']:.3f} s, device "
+              f"busy {trace['device_busy_ms']:.2f} ms, idle share "
+              f"{trace['idle_share']:.4f}")
+    vfull, wnd, bd = seen["mp3_window"][0]
+    return check_mp3_window("CodecMp3 group 0", vfull, wnd, bd,
+                            phase=18), launches
+
+
 def render_phase(jobs, tracks, streams, device="cuda") -> tuple:
     """Phase 17: the port's render path on ``device``, through
     PipelineManager.play_uri, the codec controller, AnimatorBatch and its
@@ -1641,8 +1988,9 @@ def render_phase(jobs, tracks, streams, device="cuda") -> tuple:
     bit for bit; the ADTS assets are held to the CPU (<= 1 and <= 2 LSB) with
     sbr_env launched; a 3 s cut of the CD track plays through a realtime
     AnimatorBasic with the default params (its late quanta are printed).
-    Returns check_lpc's record for the LPC kernel on the first group's rows
-    of the render path."""
+    Returns (check_lpc's record for the LPC kernel on the first group's
+    rows of the render path, the launches of the warm FLAC plays and the
+    ADTS plays)."""
     from ohpipeline_tpu_torch import _kernels
     from ohpipeline_tpu_torch._host import encode_flac
     from ohpipeline_tpu_torch.codecs import flac as flac_codec
@@ -1727,6 +2075,8 @@ def render_phase(jobs, tracks, streams, device="cuda") -> tuple:
                                      f"{lsb} LSB")
             plays.append(f"{os.path.basename(path)} ({ci.codec_name}) "
                          f"{card.pcm.shape} <= {lsb} LSB")
+        played = {k: render_launches[k] + v
+                  for k, v in _kernels.launches.items()}
         aac_launches = {k: _kernels.launches[k] for k in ("sbr_env", "tns")}
         if aac_launches["sbr_env"] <= 0:
             raise AssertionError("the sbr_env kernel did not run on the "
@@ -1750,7 +2100,7 @@ def render_phase(jobs, tracks, streams, device="cuda") -> tuple:
               f"{rt_fill} samples of starvation fill; late quanta "
               f"{rt_anim.late_quanta}, worst lateness "
               f"{rt_anim.worst_late_s * 1e3:.3f} ms")
-    return check_lpc("render path group 0", render_lpc, phase=17)
+    return check_lpc("render path group 0", render_lpc, phase=17), played
 
 
 def check_precision() -> None:
@@ -2295,50 +2645,70 @@ def main() -> None:
     check_precision()
 
     # --- phase 17: the render path on the card ---------------------------
-    lpc_render = render_phase(jobs, tracks, streams)
+    lpc_render, render_launches = render_phase(jobs, tracks, streams)
     lpc_err = max(lpc_err, lpc_render[0])
+    check_precision()
+
+    # --- phase 18: the other plug-ins through the render path -------------
+    win_plugin, plugin_launches = plugin_phase(content)
+    win_err = max(win_err, win_plugin[0])
+    on_path = {k: render_launches[k] + plugin_launches[k]
+               for k in render_launches}
     check_precision()
 
     def bounds(b, library_ms=None):
         return {"bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
+
+    def flag(name):
+        """Whether the render path's counted plays (phase 17's warm FLAC
+        and ADTS plays, phase 18's warm plays) launched the kernel, and how
+        often."""
+        return {"on_render_path": on_path[name] > 0,
+                "render_launches": on_path[name]}
 
     kernels = [
         {"name": "lpc", "route": "cuda",
          "source": "ohpipeline_tpu_torch/csrc/lpc.cu",
          "replaces": "ohpipeline_tpu/ops/lpc.py:131",
          "launches": counts["lpc"], "max_abs_err": lpc_err,
-         "ms": lpc_ms, "plain_ms": lpc_plain_ms, **bounds(lpc_bound)},
+         "ms": lpc_ms, "plain_ms": lpc_plain_ms, **bounds(lpc_bound),
+         **flag("lpc")},
         {"name": "rice", "route": "cuda",
          "source": "ohpipeline_tpu_torch/csrc/rice.cu",
          "replaces": "ohpipeline_tpu/codecs/flac/rice_jax.py:41",
          "launches": counts["rice"], "max_abs_err": rice_err,
-         "ms": rice_ms, "plain_ms": rice_plain_ms, **bounds(rice_bound)},
+         "ms": rice_ms, "plain_ms": rice_plain_ms, **bounds(rice_bound),
+         **flag("rice")},
         {"name": "tns", "route": "cuda",
          "source": "ohpipeline_tpu_torch/csrc/tns.cu",
          "replaces": "ohpipeline_tpu/codecs/aac/synthesis.py:287",
          "launches": tns_launches, "max_abs_err": tns_err,
-         "ms": tns_ms, "plain_ms": tns_plain_ms, **bounds(tns_bound)},
+         "ms": tns_ms, "plain_ms": tns_plain_ms, **bounds(tns_bound),
+         **flag("tns")},
         {"name": "sbr_env", "route": "cuda",
          "source": "ohpipeline_tpu_torch/csrc/sbr_env.cu",
          "replaces": "ohpipeline_tpu/codecs/aac/sbr_jax.py:489",
          "launches": he_launches["sbr_env"], "max_abs_err": sbr_err,
-         "ms": sbr_ms, "plain_ms": sbr_plain_ms, **bounds(sbr_bound)},
+         "ms": sbr_ms, "plain_ms": sbr_plain_ms, **bounds(sbr_bound),
+         **flag("sbr_env")},
         {"name": "celt_comb", "route": "cuda",
          "source": "ohpipeline_tpu_torch/csrc/celt_comb.cu",
          "replaces": "ohpipeline_tpu/codecs/opus/celt_jax.py:156",
          "launches": celt_launches, "max_abs_err": comb_err,
-         "ms": comb_ms, "plain_ms": comb_plain_ms, **bounds(comb_bound)},
+         "ms": comb_ms, "plain_ms": comb_plain_ms, **bounds(comb_bound),
+         **flag("celt_comb")},
         {"name": "mp3_window", "route": "cuda",
          "source": "ohpipeline_tpu_torch/csrc/mp3_window.cu",
          "replaces": "ohpipeline_tpu/codecs/mp3/synthesis.py:346",
          "launches": win_launches, "max_abs_err": win_err,
          "ms": win_ms, "plain_ms": win_plain_ms,
-         **bounds(win_bound, win_lib_ms)},
+         **bounds(win_bound, win_lib_ms), **flag("mp3_window")},
         {"name": "ps_mix", "route": "cuda",
          "source": "ohpipeline_tpu_torch/csrc/ps_mix.cu",
          "replaces": "ohpipeline_tpu/codecs/aac/sbr_jax.py:1149",
          "launches": ps_launches["ps_mix"], "max_abs_err": psm_err,
-         "ms": psm_ms, "plain_ms": psm_plain_ms, **bounds(psm_bound)},
+         "ms": psm_ms, "plain_ms": psm_plain_ms, **bounds(psm_bound),
+         **flag("ps_mix")},
     ]
     print(card_line)
     print(json.dumps({"kernels": kernels}))

@@ -27,7 +27,7 @@ from .host.codecs.mp3 import prep as mp3_prep
 from .host.codecs.opus import celt
 from .host.codecs.vorbis import encoder as vorbis_encoder
 from .host.codecs.vorbis import synthesis as vorbis_synthesis
-from .host.codecs.opus.packet import split_packet_frames
+from .host.codecs.opus import split_packet_frames
 from .host.containers import ogg
 
 parse_metadata = frames.parse_metadata

@@ -22,7 +22,12 @@ IMDCT fused on the device.  A group the device path does not take (a frame
 without an SBR payload, a header change inside the group, PS before the
 first PS parameters) is the content the reference also routes through the
 per-frame numpy chain (``sbr.py``'s ``SbrDecoder``), which stays here as it
-is there.  ``CodecAacMp4`` is not ported.
+is there.  :class:`CodecAacMp4` is the MP4 plug-in: the sample tables of
+the host ``containers/mpeg4.py``, the AudioSpecificConfig
+(:func:`parse_audio_specific_config`), AAC-LC groups of
+:data:`GROUP_FRAMES` frames as deferred batches (:func:`decode_frames`) and
+HE-AAC groups of :data:`SBR_GROUP_FRAMES` frames through the same SBR
+runners as the ADTS plug-in.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ... import _kernels
 from ..._host import aac_bitstream as BS
 from ..._host import aac_native, sbr_native
 from ..._host import aac_sbr as SBR
@@ -758,6 +764,172 @@ def _sbr_decode_frames_device(frames, state, sbr, nch,
         np.ascontiguousarray(specs.transpose(1, 0, 2)),
         np.ascontiguousarray(ops.T), per_ch, state.overlap)
     return resolve if lazy else resolve()
+
+
+def parse_audio_specific_config(asc: bytes) -> tuple:
+    """AudioSpecificConfig -> (rate_index, channels, sbr_explicit,
+    ps_explicit).  Accepts AOT 2 (LC) and the AOT 5/29 explicit-SBR
+    hierarchy whose core is LC (tpdec_asc.cpp AudioSpecificConfig_Parse:
+    aot, samplingFrequencyIndex, channelConfiguration, then for 5/29 the
+    extension rate and the core AOT).  AOT 29 signals the parametric-stereo
+    tool: the caller forces 2-channel output even if the first frame
+    carries no ps_data yet, as fdk's tpdec_asc does."""
+    br = BitReader(asc)
+    aot = br.read(5)
+    rate_idx = br.read(4)
+    if rate_idx == 0xF:
+        br.read(24)
+        raise CodecStreamCorrupt("explicit AAC sample rate unsupported")
+    channels = br.read(4)
+    sbr_explicit = False
+    ps_explicit = aot == 29
+    if aot in (5, 29):
+        ext_idx = br.read(4)
+        if ext_idx == 0xF:
+            br.read(24)
+        aot = br.read(5)
+        sbr_explicit = True
+    if aot != 2:
+        raise CodecStreamCorrupt(f"not AAC-LC (AOT {aot})")
+    return rate_idx, channels, sbr_explicit, ps_explicit
+
+
+class CodecAacMp4(CodecBase):
+    """AAC-LC / HE-AAC (v1, v2) in MP4 (reference CodecAacFdkMp4), decoding
+    on ``device``: the ISO-BMFF sample tables of the host
+    ``containers/mpeg4.py``; SBR is found explicitly (an AOT 5/29
+    AudioSpecificConfig) and implicitly (a low-rate LC track whose first
+    sample carries an SBR payload).  Frames parse with the Python parser, as
+    in the JAX plug-in.  Every error of the probes goes on as the JAX
+    plug-in's does (not recognised, plain AAC-LC), except a device fault,
+    which is raised."""
+
+    name = "AAC-MP4"
+    recognition_cost = 25
+    mime_types = ("audio/mp4", "audio/m4a")
+
+    def __init__(self, *, device="cuda"):
+        self._info = None
+        self._track = None
+        self._samples = None
+        self._index = 0
+        self._state = None
+        self._data = b""
+        self._device = torch.device(device)
+
+    def recognise(self, header: bytes) -> bool:
+        if len(header) < 12 or header[4:8] != b"ftyp":
+            return False
+        from ...host.containers.mpeg4 import find_audio_track
+        try:
+            track = find_audio_track(header)
+        except Exception as exc:                          # noqa: BLE001
+            if _kernels.is_device_fault(exc):
+                raise
+            return False
+        return track is not None and track.codec == "mp4a"
+
+    def stream_initialise(self, reader: StreamReader) -> PcmStreamInfo:
+        from ...host.containers.mpeg4 import find_audio_track
+        self._data = reader.read(reader.stream_bytes or (1 << 30))
+        track = find_audio_track(self._data)
+        if track is None or track.codec != "mp4a":
+            raise CodecStreamCorrupt("no mp4a track")
+        asc = track.codec_config
+        if len(asc) < 2:
+            raise CodecStreamCorrupt("missing AudioSpecificConfig")
+        rate_idx, channels, sbr_explicit, ps_explicit = \
+            parse_audio_specific_config(asc)
+        self._track = track
+        self._rate_index = rate_idx
+        self._samples = list(track.sample_offsets())
+        self._index = 0
+        self._sample_pos = 0
+        self._state = _StreamState(channels)
+        rate = T.SAMPLE_RATES[rate_idx]
+        self._sbr = None
+        self._ps = False
+        if sbr_explicit or rate <= 24000:
+            try:
+                off, size = self._samples[0]
+                br = BitReader(self._data[off:off + size])
+                fr = BS.parse_raw_data_block(br, rate_idx)
+                if fr.sbr is not None:
+                    sbr_native()
+                    self._sbr = SBR.SbrDecoder(rate)
+                    if channels == 1:
+                        # Throwaway probe decoder: parse_payload mutates
+                        # delta-coding state and process() re-parses this
+                        # same first sample.
+                        probe = SBR.SbrDecoder(rate)
+                        chs, _c = probe.parse_payload(
+                            fr.sbr[0], fr.sbr[1], stereo=False,
+                            crc=fr.sbr[2])
+                        self._ps = chs[0].ps is not None
+            except Exception as exc:                      # noqa: BLE001
+                if _kernels.is_device_fault(exc):
+                    raise
+                self._sbr = None
+                self._ps = False
+        if ps_explicit and channels == 1:
+            # AOT 29 signals PS: HE-AAC v2 stereo even when the first sample
+            # carries no ps_data (the header may come later) or the probe
+            # failed, as fdk's tpdec_asc does
+            if self._sbr is None:
+                sbr_native()
+                self._sbr = SBR.SbrDecoder(rate)
+            self._ps = True
+        spf = 1024 * (2 if self._sbr else 1)
+        out_rate = rate * (2 if self._sbr else 1)
+        name = "AAC"
+        if self._sbr:
+            name = "HE-AAC v2" if self._ps else "HE-AAC"
+        self._info = PcmStreamInfo(
+            sample_rate=out_rate, bit_depth=16,
+            num_channels=2 if self._ps else channels,
+            codec_name=name,
+            lossless=False, seekable=self._sbr is None,
+            track_length_jiffies=track.total_samples * spf
+            * Jiffies.per_sample(out_rate) if track.stts else 0)
+        return self._info
+
+    def process(self, reader: StreamReader) -> DecodedBatch:
+        if self._index >= len(self._samples):
+            raise EndOfStream
+        frames = []
+        group = SBR_GROUP_FRAMES if self._sbr is not None else GROUP_FRAMES
+        while self._index < len(self._samples) and len(frames) < group:
+            off, size = self._samples[self._index]
+            self._index += 1
+            br = BitReader(self._data[off:off + size])
+            try:
+                frames.append(BS.parse_raw_data_block(br, self._rate_index))
+            except (BS.AacError, ValueError, EOFError):
+                continue
+        if not frames:
+            raise EndOfStream
+        first = self._sample_pos
+        dev = self._device
+        if self._sbr is not None:
+            pcm = _sbr_decode_frames(
+                frames, self._state, self._sbr,
+                1 if self._ps else self._info.num_channels, ps=self._ps,
+                device=dev)
+            self._sample_pos += pcm.shape[1]
+            return DecodedBatch(self._info, samples=pcm,
+                                track_offset_samples=first)
+        self._sample_pos += len(frames) * 1024
+        state = self._state
+        return DecodedBatch(
+            self._info, defer=lambda: decode_frames(frames, state, device=dev),
+            track_offset_samples=first)
+
+    def try_seek(self, sample: int) -> Optional[int]:
+        idx, pcm0 = self._track.seek_sample(sample)
+        self._index = idx
+        self._sample_pos = pcm0
+        self._state = _StreamState(self._info.num_channels)
+        return 0   # data already buffered; no upstream reposition needed
 
 
 def decode_adts(data: bytes, *, device="cuda") -> tuple:

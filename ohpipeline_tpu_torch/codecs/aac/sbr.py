@@ -484,10 +484,13 @@ class SbrDeviceRunner:
     """The multi-channel runner of ``sbr_jax.SbrDeviceRunner``: the AAC-LC
     core and the SBR group of ``nch`` channels side by side in one pass on
     ``device``, with the SBR state and the core overlap kept there across
-    groups.  Two wires: the zigzag wire of the serving path
-    (:meth:`decode_group_multi_zz`) and the prepared spectra of the codec
-    plug-in (:meth:`decode_group_multi_lazy_spec`).  Parsing,
-    dequantisation and the cond build stay on the host."""
+    groups.  Three wires: the zigzag wire of the serving path
+    (:meth:`decode_group_multi_zz`), the prepared spectra of the codec
+    plug-ins (:meth:`decode_group_multi_lazy_spec`) and the core PCM
+    (:meth:`decode_group` for one channel, :meth:`decode_group_multi` for
+    all).  Channel ``ch``'s SBR state is row ``ch`` of the runner's state
+    on every wire.  Parsing, dequantisation and the cond build stay on the
+    host."""
 
     def __init__(self, dec: SBR.SbrDecoder, nch: int = 2, *, device="cuda"):
         self.dec = dec
@@ -521,6 +524,44 @@ class SbrDeviceRunner:
                              datas, Es, Qs, self.first[ch], cond=view)
             self.first[ch] = False
         return stacked
+
+    def decode_group(self, ch: int, pcm_frames: np.ndarray, datas: list,
+                     Es: list, Qs: list) -> np.ndarray:
+        """Channel ``ch``'s group from its core PCM: pcm_frames (F, 1024),
+        datas/Es/Qs per frame.  Returns (F*2048,) float32 at the doubled
+        rate, unrounded."""
+        cond = build_frame_cond(self.dec, self.state_host[ch], self.static,
+                                datas, Es, Qs, self.first[ch])
+        self.first[ch] = False
+        cond = cond_to_device({k: v[None] for k, v in vars(cond).items()},
+                              self.device)
+        pcm = torch.from_numpy(np.asarray(pcm_frames, np.float32))
+        state = {k: v[ch:ch + 1] for k, v in self._stacked.items()}
+        out, state = device_decode_group(self.static, pcm[None].to(
+            self.device), cond, state)
+        self._stacked = {k: torch.cat([v[:ch], state[k], v[ch + 1:]])
+                         for k, v in self._stacked.items()}
+        return out[0].cpu().numpy()
+
+    def decode_group_multi_lazy(self, pcm_frames: np.ndarray, per_ch: list):
+        """Every channel's group in one pass from the core PCM: pcm_frames
+        (C, F, 1024) for the runner's C channels, per_ch[c] = (datas, Es,
+        Qs).  The group is queued on the device; returns a zero-argument
+        function that copies the (C, F*2048) PCM back as int32, rounded half
+        to even and clipped."""
+        nch, F = pcm_frames.shape[:2]
+        cond = cond_to_device(self._build_stacked_cond(nch, F, per_ch),
+                              self.device)
+        pcm = torch.from_numpy(np.asarray(pcm_frames, np.float32))
+        out, self._stacked = device_decode_group(
+            self.static, pcm.to(self.device), cond, self._stacked)
+        pcm16 = _pcm16(out)
+        return lambda: pcm16.cpu().numpy().astype(np.int32)
+
+    def decode_group_multi(self, pcm_frames: np.ndarray,
+                           per_ch: list) -> np.ndarray:
+        """:meth:`decode_group_multi_lazy`, copied back at once."""
+        return self.decode_group_multi_lazy(pcm_frames, per_ch)()
 
     def decode_group_multi_zz(self, planes: dict, per_ch: list, consts):
         """One group: ``planes`` the LC core's zigzag wire as tensors on the

@@ -5,9 +5,13 @@ A copy of the JAX package's loader and bindings, cut to the families the
 port's paths reach: the FLAC rice-wire parser (``flac_unpack.cc``), the AAC
 unpacker and zigzag wire (``aac_unpack.cc``), the SBR payload parser
 (``sbr_parse.cc``), the CELT entropy core (``celt_core.cc``), the MP3 Layer
-III Huffman decode (``mp3_core.cc``) and the Vorbis residue walk
-(``vorbis_core.cc``).  The ``.cc`` files are byte copies of the JAX
-package's.
+III Huffman decode (``mp3_core.cc``), the Vorbis residue walk
+(``vorbis_core.cc``), the SILK packet parse and fixed-point synthesis
+(``silk_core.cc``, ``silk_parse.cc``, ``silk_synth.cc``) and the ALAC
+residual decode and predictor (``alac_core.cc``).  The ``.cc`` files are
+byte copies of the JAX package's.  Where the JAX loader returns None for a
+library that does not build, so its ``have_*`` checks read False, this one
+raises, so they read True or raise.
 
 Each library is compiled into ``ohpipeline_tpu_torch/_build/`` under a name
 that carries a hash of its sources and flags, so an edited source rebuilds.
@@ -977,3 +981,307 @@ class VorbisNativeCtx:
         if getattr(self, "_handle", None) and self._lib is not None:
             self._lib.vorbis_ctx_destroy(self._handle)
             self._handle = None
+
+
+# ---------------------------------------------------------------------------
+# SILK fixed-point synthesis core (silk_core.cc) — bit-exact integer
+# pipeline for the normative SILK decoder arithmetic (decode_core.c,
+# NLSF2A.c, resampler, stereo_MS_to_LR.c).  codecs/opus/silk.py takes
+# these unless OHP_SILK_PY / OHP_SILK_FLOAT force its Python oracle.
+
+
+def _silk_lib() -> ctypes.CDLL | None:
+    lib = _load("silkcore", ["silk_core.cc", "silk_parse.cc",
+                             "silk_synth.cc"])
+    if lib is not None and not getattr(lib, "_sigs_set", False):
+        lib.silk_synth_frame_fix.restype = ctypes.c_int
+        lib.silk_synth_frame_fix.argtypes = [
+            _i32p, _i16p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            _i32p, _i32p, _i16p,
+            _i32p, _i16p, _i32p,
+            _i16p, _i32p, _i32p, _i32p, _i32p, _i16p, _i32p, _i16p,
+            _i32p, _i16p]
+        lib.silk_parse_packet.restype = ctypes.c_int
+        lib.silk_parse_packet.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, _i64p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+            _i32p, _i32p, _i32p, _i16p, _i32p, _i16p, _i32p]
+        lib.silk_nlsf2a.restype = None
+        lib.silk_nlsf2a.argtypes = [_i16p, ctypes.c_int, _i16p, _i16p]
+        lib.silk_decode_core_fix.restype = ctypes.c_int
+        lib.silk_decode_core_fix.argtypes = [
+            _i16p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, _i16p, _i16p, _i32p, _i32p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int32,
+            ctypes.c_int, _i16p, _i32p, _i32p, _i32p, _i16p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _i32p]
+        lib.silk_frame_fix.restype = ctypes.c_int
+        lib.silk_frame_fix.argtypes = [
+            ctypes.c_int, _i16p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, _i16p, _i16p, _i32p, _i32p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int32,
+            ctypes.c_int, _i16p, _i16p, ctypes.c_int,
+            _i16p, _i32p, _i32p, _i32p, _i32p, _i16p, _i32p, _i16p,
+            _i32p, _i16p]
+        lib.silk_resampler_iir_fir.restype = ctypes.c_int
+        lib.silk_resampler_iir_fir.argtypes = [
+            _i16p, ctypes.c_int, ctypes.c_int, ctypes.c_int32,
+            _i32p, _i16p, _i16p, _i16p, _i16p]
+        lib.silk_stereo_ms_to_lr.restype = ctypes.c_int
+        lib.silk_stereo_ms_to_lr.argtypes = [
+            _i16p, _i16p, _i16p, _i16p, _i32p, _i32p,
+            ctypes.c_int, ctypes.c_int]
+        lib._sigs_set = True
+    return lib
+
+
+def have_silk_core() -> bool:
+    return _silk_lib() is not None
+
+
+def silk_parse_packet(data: bytes, st64: np.ndarray, bw: int, stereo: bool,
+                      n_frames: int, n_subfr: int, frame_length: int,
+                      tab_blob: np.ndarray, tab_offs: np.ndarray,
+                      pred_quant_q13: np.ndarray):
+    """Parse one SILK packet's LP layer natively (silk_parse.cc; the
+    Python layer in codecs/opus/silk.py is the behaviour oracle).
+
+    st64 is the 10-slot range-decoder handoff state ([0]!=0 resumes,
+    always written back).  Returns (ix, pulses, lbrr_ix, lbrr_pulses,
+    stereo_misc) — ix rows are the 40-int32 frame-index layout
+    documented in silk_parse.cc — or None when the native core is
+    unavailable."""
+    lib = _silk_lib()
+    if lib is None:
+        return None
+    nch = 2 if stereo else 1
+    ix = np.zeros((n_frames * nch, 40), np.int32)
+    pulses = np.zeros((n_frames * nch, frame_length), np.int16)
+    lbrr_ix = np.zeros((n_frames * nch, 40), np.int32)
+    lbrr_pulses = np.zeros((n_frames * nch, frame_length), np.int16)
+    stereo_misc = np.zeros(3 * max(n_frames, 1), np.int32)
+    rc = lib.silk_parse_packet(
+        data, len(data), st64, bw, int(stereo), n_frames, n_subfr,
+        frame_length, tab_blob, tab_offs, pred_quant_q13,
+        ix, pulses, lbrr_ix, lbrr_pulses, stereo_misc)
+    if rc != 0:
+        return None
+    return ix, pulses, lbrr_ix, lbrr_pulses, stereo_misc
+
+
+def silk_nlsf2a(nlsf_q15: np.ndarray, cos_tab_q12: np.ndarray) -> np.ndarray:
+    """Q15 NLSF vector -> stabilised Q12 LPC (silk/NLSF2A.c)."""
+    lib = _silk_lib()
+    d = len(nlsf_q15)
+    a = np.zeros(d, np.int16)
+    lib.silk_nlsf2a(np.ascontiguousarray(nlsf_q15, np.int16), d,
+                    np.ascontiguousarray(cos_tab_q12, np.int16), a)
+    return a
+
+
+class SilkPlcState:
+    """Persistent PLC/CNG/decoder bookkeeping for silk_frame_fix
+    (layouts documented in silk_core.cc)."""
+
+    def __init__(self):
+        self.plc_i32 = np.zeros(10, np.int32)
+        self.plc_i16 = np.zeros(23, np.int16)
+        self.cng_i32 = np.zeros(339, np.int32)
+        self.cng_i16 = np.zeros(16, np.int16)
+        self.misc = np.zeros(4, np.int32)
+        self.misc[2] = 1                       # first_frame_after_reset
+        self.exc = np.zeros(320, np.int32)     # last good excitation
+
+
+def silk_frame_fix(lost: bool, pulses: np.ndarray, subfr_length: int,
+                   nb_subfr: int, lpc_order: int, ltp_mem: int,
+                   a_q12_both: np.ndarray, b_q14: np.ndarray,
+                   gains_q16: np.ndarray, pitch_lags: np.ndarray,
+                   ltp_scale_q14: int, signal_type: int,
+                   quant_offset: int, seed: int, nlsf_interp: bool,
+                   prev_nlsf_q15: np.ndarray, cos_tab_q12: np.ndarray,
+                   fs_khz: int, out_buf: np.ndarray,
+                   s_lpc_q14: np.ndarray, prev_gain_q16: np.ndarray,
+                   plc: "SilkPlcState") -> np.ndarray:
+    """One SILK frame: fixed-point decode (lost=False) or packet-loss
+    concealment (lost=True), with PLC state tracking, comfort-noise
+    and frame gluing (silk/decode_frame.c + PLC.c + CNG.c).  Mutates
+    all state arrays in place; returns xq int16."""
+    lib = _silk_lib()
+    frame_length = subfr_length * nb_subfr
+    xq = np.zeros(frame_length, np.int16)
+    rc = lib.silk_frame_fix(
+        int(lost), np.ascontiguousarray(pulses, np.int16), frame_length,
+        subfr_length, nb_subfr, lpc_order, ltp_mem,
+        np.ascontiguousarray(a_q12_both, np.int16),
+        np.ascontiguousarray(b_q14, np.int16),
+        np.ascontiguousarray(gains_q16, np.int32),
+        np.ascontiguousarray(pitch_lags, np.int32),
+        int(ltp_scale_q14), int(signal_type), int(quant_offset),
+        ctypes.c_int32(int(seed)), int(nlsf_interp),
+        np.ascontiguousarray(prev_nlsf_q15, np.int16),
+        np.ascontiguousarray(cos_tab_q12, np.int16), fs_khz,
+        out_buf, s_lpc_q14, prev_gain_q16, plc.exc,
+        plc.plc_i32, plc.plc_i16, plc.cng_i32, plc.cng_i16, plc.misc,
+        xq)
+    if rc != 0:
+        raise ValueError("silk_frame_fix failed")
+    return xq
+
+
+def silk_synth_frame_fix(row: np.ndarray, pulses: np.ndarray, bw: int,
+                         nb_subfr: int, subfr_length: int,
+                         lpc_order: int, ltp_mem: int, fs_khz: int,
+                         dq: np.ndarray, dqo: np.ndarray,
+                         cos_tab_q12: np.ndarray,
+                         prev_gain_ind: np.ndarray,
+                         prev_nlsf: np.ndarray, have_prev: np.ndarray,
+                         out_buf: np.ndarray, s_lpc_q14: np.ndarray,
+                         prev_gain_q16: np.ndarray,
+                         plc: "SilkPlcState") -> np.ndarray:
+    """Fused dequant + synthesis of one parsed SILK frame row
+    (silk_synth.cc): gains/NLSF/pitch/LTP dequant + silk_frame_fix in
+    one native call.  Mutates all state arrays in place; returns xq
+    int16."""
+    lib = _silk_lib()
+    frame_length = subfr_length * nb_subfr
+    xq = np.zeros(frame_length, np.int16)
+    rc = lib.silk_synth_frame_fix(
+        np.ascontiguousarray(row, np.int32),
+        np.ascontiguousarray(pulses, np.int16), bw, nb_subfr,
+        subfr_length, lpc_order, ltp_mem, fs_khz, dq, dqo,
+        np.ascontiguousarray(cos_tab_q12, np.int16),
+        prev_gain_ind, prev_nlsf, have_prev,
+        out_buf, s_lpc_q14, prev_gain_q16, plc.exc,
+        plc.plc_i32, plc.plc_i16, plc.cng_i32, plc.cng_i16, plc.misc,
+        xq)
+    if rc != 0:
+        raise ValueError("silk_synth_frame_fix failed")
+    return xq
+
+
+def silk_decode_core_fix(pulses: np.ndarray, subfr_length: int,
+                         nb_subfr: int, lpc_order: int, ltp_mem: int,
+                         a_q12_both: np.ndarray, b_q14: np.ndarray,
+                         gains_q16: np.ndarray, pitch_lags: np.ndarray,
+                         ltp_scale_q14: int, signal_type: int,
+                         quant_offset: int, seed: int,
+                         nlsf_interp: bool, out_buf: np.ndarray,
+                         s_lpc_q14: np.ndarray,
+                         prev_gain_q16: np.ndarray
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """One SILK frame of fixed-point inverse NSQ (silk/decode_core.c).
+    Mutates out_buf / s_lpc_q14 / prev_gain_q16 state in place; returns
+    (xq int16, exc_Q14 int32)."""
+    lib = _silk_lib()
+    frame_length = subfr_length * nb_subfr
+    xq = np.zeros(frame_length, np.int16)
+    exc = np.zeros(frame_length, np.int32)
+    rc = lib.silk_decode_core_fix(
+        np.ascontiguousarray(pulses, np.int16), frame_length, subfr_length,
+        nb_subfr, lpc_order, ltp_mem,
+        np.ascontiguousarray(a_q12_both, np.int16),
+        np.ascontiguousarray(b_q14, np.int16),
+        np.ascontiguousarray(gains_q16, np.int32),
+        np.ascontiguousarray(pitch_lags, np.int32),
+        int(ltp_scale_q14), int(signal_type), int(quant_offset),
+        ctypes.c_int32(seed & 0xFFFFFFFF if seed < (1 << 31)
+                       else (seed - (1 << 32))), int(nlsf_interp),
+        out_buf, s_lpc_q14, prev_gain_q16, exc, xq,
+        0, 0, 0, np.zeros(4, np.int32))
+    if rc != 0:
+        raise ValueError("silk_decode_core_fix: invalid pitch lag state")
+    return xq, exc
+
+
+def silk_resampler_iir_fir(x: np.ndarray, batch: int, incr_q16: int,
+                           s_iir: np.ndarray, s_fir: np.ndarray,
+                           up2_coefs: np.ndarray,
+                           frac_fir_12: np.ndarray) -> np.ndarray:
+    """Fixed-point fs->48k upsampler (resampler_private_IIR_FIR.c);
+    mutates s_iir int32[6] / s_fir int16[8] in place."""
+    lib = _silk_lib()
+    x = np.ascontiguousarray(x, np.int16)
+    cap = (2 * len(x) * (1 << 16)) // max(incr_q16, 1) + 16
+    out = np.zeros(cap, np.int16)
+    n = lib.silk_resampler_iir_fir(
+        x, len(x), batch, incr_q16, s_iir, s_fir,
+        np.ascontiguousarray(up2_coefs, np.int16),
+        np.ascontiguousarray(frac_fir_12, np.int16), out)
+    return out[:n]
+
+
+def silk_stereo_ms_to_lr(mid: np.ndarray, side: np.ndarray,
+                         s_mid: np.ndarray, s_side: np.ndarray,
+                         pred_prev_q13: np.ndarray, pred_q13: np.ndarray,
+                         fs_khz: int) -> tuple[np.ndarray, np.ndarray]:
+    """Mid/side -> L/R with interpolated predictors
+    (silk/stereo_MS_to_LR.c); x inputs are the frame WITHOUT history --
+    the 2-sample history is carried in s_mid/s_side (mutated)."""
+    lib = _silk_lib()
+    frame_length = len(mid)
+    x1 = np.zeros(frame_length + 2, np.int16)
+    x2 = np.zeros(frame_length + 2, np.int16)
+    x1[2:] = mid
+    x2[2:] = side
+    lib.silk_stereo_ms_to_lr(
+        x1, x2, s_mid, s_side, pred_prev_q13,
+        np.ascontiguousarray(pred_q13, np.int32), fs_khz, frame_length)
+    # dec_API.c feeds the resampler from &x[1]: the converted samples
+    # live at [1, L+1) and carry the decoder's one-sample delay
+    return x1[1:frame_length + 1], x2[1:frame_length + 1]
+
+
+# ---------------------------------------------------------------------------
+# ALAC hot loops (alac_core.cc): adaptive-Golomb residual decode +
+# sign-adaptive FIR prediction (ag_dec.c / dp_dec.c behaviour).
+# codecs/alac.py takes these; its pure-Python loops are the oracle the
+# tests hold them to.
+
+
+def _alac_lib() -> ctypes.CDLL | None:
+    lib = _load("alaccore", ["alac_core.cc"])
+    if lib is not None and not getattr(lib, "_sigs_set", False):
+        lib.alac_dyn_decomp.restype = ctypes.c_int
+        lib.alac_dyn_decomp.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int, _i32p]
+        lib.alac_unpc_block.restype = ctypes.c_int
+        lib.alac_unpc_block.argtypes = [
+            _i32p, ctypes.c_int, _i32p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, _i32p]
+        lib._sigs_set = True
+    return lib
+
+
+def have_alac_core() -> bool:
+    return _alac_lib() is not None
+
+
+def alac_dyn_decomp(data: bytes, bit_pos: int, num: int, chan_bits: int,
+                    mb0: int, pb: int, kb: int) -> tuple:
+    """(residuals int32[num], new_bit_pos); raises on zero-run overrun."""
+    lib = _alac_lib()
+    out = np.zeros(num, np.int32)
+    pos = ctypes.c_int64(bit_pos)
+    rc = lib.alac_dyn_decomp(data, len(data), ctypes.byref(pos), num,
+                             chan_bits, mb0, pb, kb, out)
+    if rc != 0:
+        raise ValueError("alac zero-run overrun")
+    return out, pos.value
+
+
+def alac_unpc_block(resid: np.ndarray, coefs: np.ndarray, numactive: int,
+                    chan_bits: int, denshift: int) -> np.ndarray:
+    """Prediction synthesis; mutates coefs (int32) like the adaptive
+    reference filter.  Returns int32 output."""
+    lib = _alac_lib()
+    resid = np.ascontiguousarray(resid, np.int32)
+    out = np.zeros(len(resid), np.int32)
+    lib.alac_unpc_block(resid, len(resid), coefs, numactive, chan_bits,
+                        denshift, out)
+    return out

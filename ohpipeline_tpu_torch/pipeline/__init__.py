@@ -4,9 +4,11 @@ Port of ``ohpipeline_tpu.pipeline``.  :class:`PipelineManager` is the host
 pipeline (``host/pipeline/manager.py``: protocols -> encoded reservoir ->
 codec controller on a decode pump thread -> decoded reservoir -> render
 chain) with the codec registry of its ``device``
-(``codecs.default_registry``: FLAC on the LPC kernel, the ADTS AAC plug-in
-on the TNS and SBR kernels); an animator (``animator.py``) pulls the render
-chain and runs the gain pass of ``RenderBatcher`` on its ``device``.
+(``codecs.default_registry``: the JAX package's 13 plug-ins; FLAC on the
+LPC kernel, AAC in ADTS and MP4 on the SBR kernel (and the PS kernel for
+HE-AAC v2), MP3 on the window kernel, the others on the host); an animator
+(``animator.py``) pulls the render chain and runs the gain pass of
+``RenderBatcher`` on its ``device``.
 
     mgr = PipelineManager(params, device="cuda")
     try:

@@ -1,7 +1,8 @@
 """The port stands alone: it decodes FLAC, AAC-LC, HE-AAC v1 (serving, and the
 ADTS codec plug-in), HE-AAC v2 groups (the parametric-stereo runner), CELT,
-MP3 and Vorbis, runs the flagship step and plays a FLAC file through its
-pipeline with every import of jax and of ohpipeline_tpu failing, in
+MP3 and Vorbis, runs the flagship step and plays FLAC, MP3, M4A, ALAC and
+SILK files through its pipeline with every import of jax and of
+ohpipeline_tpu failing, in
 the repository and in a directory that holds only the port, chip_smoke.py and
 the test assets; no module of ohpipeline_tpu is ever loaded; its HE path
 parses every SBR payload natively; its copies of the JAX package's .cc,
@@ -113,7 +114,18 @@ _BLOCKED = textwrap.dedent("""
         with open(path, "wb") as f:
             f.write(data)
         sink, _wall, _batcher = chip_smoke.render_play(path, "cpu")
-    assert sink.infos[0].codec_name == "FLAC" and (sink.pcm == x).all()
+        assert sink.infos[0].codec_name == "FLAC" and (sink.pcm == x).all()
+        alac, alac_pcm = chip_smoke.alac_escape_stream(0, 0.3)
+        for name, content in (
+                ("MP3", mp3), ("AAC", chip_smoke.m4a_from_adts(
+                    "tests/assets/dryrun.aac")),
+                ("Opus", chip_smoke.opus_ogg(chip_smoke.silk_packets(0, 6))),
+                ("ALAC", alac)):
+            with open(path, "wb") as f:
+                f.write(content)
+            sink, _wall, _batcher = chip_smoke.render_play(path, "cpu")
+            assert sink.infos[0].codec_name == name and sink.pcm.any(), name
+        assert (sink.pcm == alac_pcm).all()
     loaded = [m for m in sys.modules if m == "ohpipeline_tpu"
               or m.startswith("ohpipeline_tpu.")]
     assert loaded == ["ohpipeline_tpu"], loaded     # the blocking None
@@ -160,9 +172,12 @@ def test_copied_sources_and_tables_are_the_originals():
     assert {str(p.relative_to(PORT / "host")) for p in copies} == {
         "native/flac_unpack.cc", "native/aac_unpack.cc",
         "native/sbr_parse.cc", "native/celt_core.cc", "native/mp3_core.cc",
-        "native/vorbis_core.cc", "codecs/aac/tables.npz",
+        "native/vorbis_core.cc", "native/silk_core.cc",
+        "native/silk_parse.cc", "native/silk_synth.cc",
+        "native/alac_core.cc", "codecs/aac/tables.npz",
         "codecs/aac/sbr_tables.npz", "codecs/opus/celt_mode.npz",
-        "codecs/mp3/tables.npz", "codecs/vorbis/tables.npz"}
+        "codecs/opus/silk_tables.npz", "codecs/mp3/tables.npz",
+        "codecs/vorbis/tables.npz"}
     for p in copies:
         original = REPO / "ohpipeline_tpu" / p.relative_to(PORT / "host")
         assert p.read_bytes() == original.read_bytes(), p
@@ -173,7 +188,7 @@ PY_COPIES = (
     "core/__init__.py", "core/jiffies.py", "core/streaminfo.py",
     "core/events.py", "core/ramp.py",
     "codecs/base.py", "codecs/wav.py", "codecs/aiff.py", "codecs/pcm_raw.py",
-    "codecs/dsd.py",
+    "codecs/dsd.py", "codecs/opus/__init__.py", "codecs/vorbis/__init__.py",
     "containers/__init__.py", "containers/base.py", "containers/id3v2.py",
     "containers/mpegts.py", "containers/mpeg4.py",
     "protocols/__init__.py", "protocols/base.py", "protocols/file.py",

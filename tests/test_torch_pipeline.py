@@ -26,6 +26,7 @@ from ohpipeline_tpu_torch import pipeline as tp
 from ohpipeline_tpu_torch.codecs import aac as aac_codec
 from ohpipeline_tpu_torch.codecs import default_registry
 from ohpipeline_tpu_torch.codecs import flac as flac_codec
+from ohpipeline_tpu_torch.codecs.mp3 import synthesis as mp3_synthesis
 from ohpipeline_tpu_torch.host.codecs import base as hbase
 from ohpipeline_tpu_torch.host.codecs.wav import write_wav
 from ohpipeline_tpu_torch.host.core import events as hev
@@ -160,23 +161,33 @@ def test_file_flac_end_to_end(tmp_path, use_native):
 def test_the_registry_follows_the_jax_order():
     from ohpipeline_tpu.codecs import default_registry as jax_registry
 
-    port = [type(c).__name__ for c in default_registry("cpu").instantiate()]
-    want = [type(c).__name__ for c in jax_registry.instantiate()]
-    assert port == [n for n in want if n in port]
-    assert set(port) == {"CodecWav", "CodecAiff", "CodecAifc", "CodecDsdDsf",
-                         "CodecDsdDff", "CodecFlac", "CodecAacAdts"}
-    assert all(c._device == torch.device("cpu")
-               for c in default_registry("cpu").instantiate()
+    def names(codecs):
+        return [(type(c).__name__, c.name, c.recognition_cost)
+                for c in codecs]
+
+    port = default_registry("cpu").instantiate()
+    assert names(port) == names(jax_registry.instantiate())
+    assert len(port) == 13
+    on_device = {type(c).__name__ for c in port if hasattr(c, "_device")}
+    assert on_device == {"CodecFlac", "CodecAacMp4", "CodecAacAdts",
+                         "CodecMp3"}
+    assert all(c._device == torch.device("cpu") for c in port
                if hasattr(c, "_device"))
 
 
 def test_an_unported_format_is_a_stream_interruption(tmp_path):
-    """An MP3 stream (its plug-in is not in the port's registry yet) is not
-    recognised: the controller interrupts the stream, as the JAX one does
-    for a stream no plug-in takes."""
-    tone = _host.mp3_encoder.tone_spectrum(30)
-    path = tmp_path / "t.mp3"
-    path.write_bytes(_host.mp3_encoder.build_stream([tone, tone], nframes=4))
+    """A byte stream that no plug-in of the registry recognises (seeded
+    bytes with no container, sync word or magic any plug-in sniffs) is
+    interrupted by the controller, as the JAX one interrupts a stream no
+    plug-in takes."""
+    from ohpipeline_tpu.codecs import default_registry as jax_registry
+
+    data = np.random.default_rng(5).integers(0, 256, 64 * 1024,
+                                             dtype=np.uint8).tobytes()
+    assert default_registry("cpu").recognise(data) is None
+    assert jax_registry.recognise(data) is None
+    path = tmp_path / "t.bin"
+    path.write_bytes(data)
     kinds = []
     sink = _play(f"file://{path}", kinds=kinds)
     assert sink.chunks == [] and "decoded_stream" not in kinds
@@ -426,12 +437,34 @@ def _fault_run(uri: str, animator: str = "batch"):
     return info.value, kinds
 
 
-@pytest.mark.parametrize("animator", ["batch", "basic"])
+@pytest.mark.parametrize("animator,stream", [
+    pytest.param("batch", "flac", id="batch"),
+    pytest.param("basic", "flac", id="basic"),
+    pytest.param("batch", "m4a", id="batch-m4a"),
+    pytest.param("basic", "m4a", id="basic-m4a"),
+    pytest.param("batch", "m4a_he", id="batch-m4a_he"),
+    pytest.param("batch", "mp3", id="batch-mp3")])
 def test_a_kernel_fault_on_the_pump_thread_reaches_the_animator(
-        tmp_path, monkeypatch, animator):
-    path = tmp_path / "t.flac"
-    path.write_bytes(_host.encode_flac(_stereo_tone(0.5), 44100, 16))
-    monkeypatch.setattr(lpc_ops, "lpc_synthesize", _raise_kernel_error)
+        tmp_path, monkeypatch, animator, stream):
+    """A FLAC stream faults in the LPC kernel; an AAC-LC M4A stream in its
+    deferred batch's filterbank, which runs when the controller resolves
+    the batch on the pump thread; an HE-AAC M4A in its SBR group; an MP3
+    stream in the window kernel of its first group."""
+    path = tmp_path / f"t.{stream}"
+    if stream == "flac":
+        path.write_bytes(_host.encode_flac(_stereo_tone(0.5), 44100, 16))
+        monkeypatch.setattr(lpc_ops, "lpc_synthesize", _raise_kernel_error)
+    elif stream == "m4a":
+        path.write_bytes(chip_smoke.m4a_from_adts(f"{ASSETS}/dryrun.aac"))
+        monkeypatch.setattr(aac_codec.SYN, "filterbank", _raise_kernel_error)
+    elif stream == "m4a_he":
+        path.write_bytes(chip_smoke.m4a_from_adts(f"{ASSETS}/dryrun_he.aac",
+                                                  True))
+        monkeypatch.setattr(aac_codec, "_sbr_decode_frames_lazy",
+                            _raise_kernel_error)
+    else:
+        path.write_bytes(chip_smoke.mp3_bench_stream(0, 1.0))
+        monkeypatch.setattr(mp3_synthesis, "mp3_window", _raise_kernel_error)
     err, kinds = _fault_run(f"file://{path}", animator)
     assert "CUDA error 719" in str(err)
     assert "stream_interrupted" not in kinds and "audio_pcm" not in kinds
