@@ -153,7 +153,29 @@ Phases, each ending in torch.cuda.synchronize():
      their host prep); each warm play's decoded s per wall s; the Xing file
      through CodecMp3 with a seek to 4 s after 3 groups, card against CPU;
      a traced MP3 play's idle share; and the mp3_window kernel against its
-     plain version at the plug-in's group shape (32 granules), timed.
+     plain version at the plug-in's group shape (32 granules), timed;
+ 19. the multi-device layer (mesh_phase), on two meshes, each against the
+     same work with no mesh on the card: make_mesh() over every visible card
+     (dp 1, sp 1 on one) and the logical mesh of four entries on cuda:0
+     (dp 2, sp 2).  The serving calls with mesh= over content whose
+     streams all take the same number of groups (phase 0's 16 CD FLAC
+     streams, phase 7's first 16 AAC-LC, phase 9's first 5 HE-AAC and phase
+     13's first 8 MP3 streams): FLAC bit-exact, AAC-LC and MP3 within 1 LSB,
+     HE-AAC within 2; each kernel's launches equal to the no-mesh call's
+     (one a group) times dp; MESH_REPS no-mesh and mesh calls in turn,
+     after a warm call, each codec's walls as median (min-max) and
+     decoded s per wall s; FLAC over each mesh equal to the encoder's
+     input.  The logical mesh's warm calls keep the inputs of each
+     kernel's first launch (block 0, group 0: the block shapes, half the
+     streams), and lpc, rice, tns, sbr_env and mp3_window are held against
+     their plain versions on them at the gates of phases 2, 3, 6, 8 and
+     13, and timed; an HE-AAC block's set-up (constants and runner) is
+     timed for the whole batch and for a block.
+     sharded_pipeline_step against the same step on a one-entry mesh
+     (rendered and meters bit-exact, AAC PCM within 0.05, the Vorbis IMDCT
+     within 1e-3), every room_fanout replica equal to its input, and
+     room_render_grid equal to the one-entry grid; then
+     dryrun_multichip(devices=MESH_LOGICAL).
 
 A kernel's time is the mean of 20 launches captured in one CUDA graph
 (kernel_ms: a launch from Python takes longer on the host than a short
@@ -230,6 +252,12 @@ MP3_SEEK_S = 4.0                      # phase 18: where the Xing play seeks
 ALAC_FRAME = 4096                     # samples an ALAC packet
 ALAC_SECONDS = 2.0
 SILK_PACKETS = 60
+MESH_FLAC_STREAMS = 16                # phase 19: the CD streams (8 s each)
+MESH_AAC_STREAMS = 16                 # 341-356 frames: 6 groups each
+MESH_HE_STREAMS = 5                   # 144-184 frames: 4 groups each
+MESH_MP3_STREAMS = 8                  # 8 s each
+MESH_LOGICAL = ["cuda:0"] * 4         # dp 2, sp 2 on one card
+MESH_REPS = 3                         # alternating timed calls a codec
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM, 700 W
 FP32_OPS_PER_S = 67e12
 
@@ -513,7 +541,7 @@ def rice_worst_case(seed=0, U=RICE_WORST_UNITS) -> tuple:
             raw.astype(np.int32), counts.astype(np.int32))
 
 
-def check_rice(name, lanes):
+def check_rice(name, lanes, phase: int = 3):
     """Rice kernel against the plain version on the card, bit for bit;
     returns (max |err|, kernel ms, plain ms, (bound ms, bound by))."""
     import torch
@@ -531,7 +559,7 @@ def check_rice(name, lanes):
     # per decoded sample ~10 integer operations (leading-zero count,
     # shifts, masks, the zigzag fold), counted at the float32 rate
     b = bound(nbytes(*lanes, got), 10 * int(lanes[4].long().sum()))
-    print(f"phase 3: rice {name}: {lanes[1].shape[0]} units over "
+    print(f"phase {phase}: rice {name}: {lanes[1].shape[0]} units over "
           f"{lanes[0].shape[0] * 4} slab bytes bit-exact; kernel "
           f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
           f"{b[0] * 1e3:.2f} us ({b[1]})")
@@ -687,7 +715,7 @@ def sbr_env_bytes(args, got, planes=False) -> int:
                                                         tab_im, parity)
 
 
-def check_sbr_env(name, args):
+def check_sbr_env(name, args, phase: int = 8):
     """SBR envelope kernel against the plain version (noise_sine_planes,
     then envelope_scan_torch) on the card, bit for bit; returns (max |err|,
     kernel ms, plain ms, bound ms, bound by)."""
@@ -712,7 +740,8 @@ def check_sbr_env(name, args):
     ops = 29 * int((args[4] >= 0).sum()) * M
     b_ms, b_by = bound(sbr_env_bytes(args, got), ops)
     b_planes = bound(sbr_env_bytes(args, got, planes=True), ops)[0]
-    print(f"phase 8: sbr_env {name}: C={C} F={F} M={M} bit-exact; kernel "
+    print(f"phase {phase}: sbr_env {name}: C={C} F={F} M={M} bit-exact; "
+          f"kernel "
           f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b_ms * 1e3:.2f} us "
           f"({b_by}; {b_planes * 1e3:.2f} us with the noise and sine planes "
           f"read)")
@@ -1352,7 +1381,7 @@ def tns_gate(got, plain, ref, rows) -> tuple:
     return float(err.max()), float(plain_err.max()), bad
 
 
-def check_tns(name, arrays, dev):
+def check_tns(name, arrays, dev, phase: int = 6):
     """TNS kernel on the card against the float64 reference and its plain
     version (tns_gate); returns (max |err| against the plain version,
     kernel ms, plain ms, bound ms, bound by)."""
@@ -1387,7 +1416,8 @@ def check_tns(name, arrays, dev):
     n_rows = int(live.sum())
     b_ms, b_by = bound(n_rows * (2 * 1024 * 4 + 1024 + 24 * 12 * 4 + 24 + 4),
                        2 * int(taps.sum()))
-    print(f"phase 6: tns {name}: {len(rows)} rows of {spec.shape[0]} "
+    print(f"phase {phase}: tns {name}: {len(rows)} rows of "
+          f"{spec.shape[0]} "
           f"within 1e-5 of each row's peak of float64 (worst {k_err:.3g}; "
           f"plain version {p_err:.3g}) and of the plain version unless "
           f"that is the further (max |err| against plain "
@@ -2103,6 +2133,246 @@ def render_phase(jobs, tracks, streams, device="cuda") -> tuple:
     return check_lpc("render path group 0", render_lpc, phase=17), played
 
 
+def first_calls_of(targets, run) -> tuple:
+    """first_calls over several (module, name) targets at once: (run()'s
+    result, {name: (args, result)} of each target's first call)."""
+    if not targets:
+        return run(), {}
+    (module, name), rest = targets[0], targets[1:]
+    (result, seen), own = first_calls(module, [name],
+                                      lambda: first_calls_of(rest, run))
+    return result, {**seen, **own}
+
+
+def spread(walls: list) -> str:
+    """'median (min-max)' of walls in seconds."""
+    return (f"{np.median(walls):.4f} s ({min(walls):.4f}-"
+            f"{max(walls):.4f})")
+
+
+def mesh_serving(mesh, name: str, calls: dict, base: dict,
+                 capture: bool) -> tuple:
+    """One mesh's serving calls against the no-mesh calls ``base`` (name
+    -> (outs, launches)): outputs within the codec's bound, launches equal
+    to the no-mesh launches times dp in every timed call.  MESH_REPS rounds
+    each time one no-mesh call and one mesh call, in turn, after a warm
+    mesh call, which with ``capture`` keeps the first block's first kernel
+    inputs.  Returns (the printed parts, {kernel: (args, result)} of the
+    captured launches, {codec: (no-mesh walls, mesh walls)})."""
+    import torch
+
+    from ohpipeline_tpu_torch import _kernels
+
+    dp = mesh.shape["dp"]
+    parts, seen, walls = [], {}, {}
+    for codec, (fn, streams, group, bound, kernels, rate, targets) \
+            in calls.items():
+        # warm every device (and keep block 0's first kernel inputs)
+        seen.update(first_calls_of(targets if capture else [],
+                                   lambda: fn(streams, group, mesh=mesh))[1])
+        want, base_launches = base[codec]
+        none_w, mesh_w = [], []
+        for _ in range(MESH_REPS):
+            t0 = time.perf_counter()
+            fn(streams, group, device="cuda")
+            torch.cuda.synchronize()
+            none_w.append(time.perf_counter() - t0)
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            outs = fn(streams, group, mesh=mesh)
+            torch.cuda.synchronize()
+            mesh_w.append(time.perf_counter() - t0)
+            launches = {k: _kernels.launches[k] for k in kernels}
+            if launches != {k: v * dp for k, v in base_launches.items()} \
+                    or min(launches.values()) <= 0:
+                raise AssertionError(f"{name} {codec}: launches {launches}, "
+                                     f"want {dp} x {base_launches}")
+        lsb = 0
+        for s, (o, w) in enumerate(zip(outs, want)):
+            if o.shape != w.shape:
+                raise AssertionError(f"{name} {codec} stream {s}: {o.shape} "
+                                     f"!= {w.shape}")
+            lsb = max(lsb, int(np.abs(o.astype(np.int64) - w).max()))
+        if lsb > bound:
+            raise AssertionError(f"{name} {codec}: {lsb} LSB from mesh=None")
+        audio_s = sum(o.shape[1] for o in outs) / rate
+        walls[codec] = (none_w, mesh_w)
+        parts.append(f"{codec} <= {lsb} LSB, launches {launches} "
+                     f"(mesh=None {base_launches}); {audio_s:.1f} s of audio "
+                     f"in {spread(mesh_w)} (mesh=None {spread(none_w)}): "
+                     f"{audio_s / np.median(mesh_w):.1f} decoded s per wall s "
+                     f"(mesh=None {audio_s / np.median(none_w):.1f}), "
+                     f"median ratio "
+                     f"{np.median(none_w) / np.median(mesh_w):.3f}")
+    return parts, seen, walls
+
+
+def mesh_kernels(seen: dict, dev) -> dict:
+    """Each kernel of the mesh path against its plain version on the inputs
+    of its first launch on the logical mesh's first block (block shapes:
+    half the streams of each call), at the gates of phases 2, 3, 6, 8 and
+    13.  Returns {kernel: max |err|}."""
+    lpc_args = list(seen["lpc_synthesize"][0])
+    tns_arrays = [t.cpu().numpy() for t in seen["tns_scan"][0]]
+    vfull, wnd, bd = seen["mp3_window"][0]
+    return {
+        "lpc": check_lpc("mesh block 0 group 0", lpc_args, phase=19)[0],
+        "rice": check_rice("mesh block 0 group 0", seen["scan_units"][0],
+                           phase=19)[0],
+        "tns": check_tns("mesh block 0 group 0 (AAC-LC)", tns_arrays, dev,
+                         phase=19)[0],
+        "sbr_env": check_sbr_env("mesh block 0 group 0",
+                                 seen["envelope_scan"][0], phase=19)[0],
+        "mp3_window": check_mp3_window("mesh block 0 group 0", vfull, wnd,
+                                       bd, phase=19)[0],
+    }
+
+
+def he_block_setup_ms(stream: bytes, nch: int, reps: int = 5) -> float:
+    """Median ms of the set-up an HE-AAC serving block makes before its
+    first group, warm: the AAC constants on the card and an
+    ``SbrDeviceRunner`` of ``nch`` channels (its static tables and state
+    rows)."""
+    import torch
+
+    from ohpipeline_tpu_torch import _host
+    from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
+    from ohpipeline_tpu_torch.codecs.aac import synthesis as asyn
+
+    _host.sbr_native()
+    h = _host.aac_bitstream.parse_adts_header(stream)
+    dec = _host.aac_sbr.SbrDecoder(h.sample_rate)
+    _, _, b = _host.aac_native().aac_parse_group_sbr(
+        stream, 0, channels=h.channels, max_frames=1)
+    payload, nbits, crc = b["sbr"][0]
+    dec.parse_payload(payload, nbits, stereo=h.channels == 2, crc=crc)
+    times = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        asyn.device_constants(h.rate_index, device="cuda")
+        sbrd.SbrDeviceRunner(dec, nch, device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times[1:]) * 1e3)
+
+
+def mesh_phase(streams, tracks, astreams, hstreams, mstreams) -> dict:
+    """Phase 19: the multi-device layer on make_mesh() and on the logical
+    mesh MESH_LOGICAL, each against the same work with no mesh on the
+    card (see the module docstring).  Returns {kernel: max |err| against
+    its plain version at the logical mesh's block shapes}."""
+    import torch
+
+    from ohpipeline_tpu_torch import _host, _kernels, parallel
+    from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
+    from ohpipeline_tpu_torch.codecs.aac import synthesis as asyn
+    from ohpipeline_tpu_torch.codecs.aac.serving import (
+        decode_aac_streams_device, decode_he_streams_device)
+    from ohpipeline_tpu_torch.codecs.flac import rice
+    from ohpipeline_tpu_torch.codecs.flac.serving import (
+        decode_flac_streams_device)
+    from ohpipeline_tpu_torch.codecs.mp3 import synthesis as msyn
+    from ohpipeline_tpu_torch.codecs.mp3.serving import (
+        decode_mp3_streams_device)
+    from ohpipeline_tpu_torch.entry import dryrun_multichip
+    from ohpipeline_tpu_torch.ops import lpc
+
+    he_rate = 2 * _host.aac_bitstream.parse_adts_header(
+        hstreams[0]).sample_rate
+    calls = {
+        "FLAC": (decode_flac_streams_device, streams[:MESH_FLAC_STREAMS],
+                 FRAMES_PER_GROUP, 0, ("lpc", "rice"), 44100.0,
+                 [(lpc, "lpc_synthesize"), (rice, "scan_units")]),
+        "AAC-LC": (decode_aac_streams_device, astreams[:MESH_AAC_STREAMS],
+                   AAC_FRAMES_PER_GROUP, 1, ("tns",), 44100.0,
+                   [(asyn, "tns_scan")]),
+        "HE-AAC": (decode_he_streams_device, hstreams[:MESH_HE_STREAMS],
+                   HE_FRAMES_PER_GROUP, 2, ("sbr_env", "tns"), he_rate,
+                   [(sbrd, "envelope_scan")]),
+        "MP3": (decode_mp3_streams_device, mstreams[:MESH_MP3_STREAMS],
+                MP3_FRAMES_PER_GROUP, 1, ("mp3_window",), 44100.0,
+                [(msyn, "mp3_window")]),
+    }
+    base = {}
+    for codec, (fn, cstreams, group, _b, kernels, _r, _t) in calls.items():
+        fn(cstreams, group, device="cuda")
+        _kernels.reset_launches()
+        outs = fn(cstreams, group, device="cuda")
+        torch.cuda.synchronize()
+        base[codec] = (outs, {k: _kernels.launches[k] for k in kernels})
+    meshes = [("make_mesh()", parallel.make_mesh()),
+              ("logical", parallel.make_mesh(devices=MESH_LOGICAL))]
+    one = parallel.make_mesh(devices=["cuda:0"])
+    step_args = parallel.example_step_args(nframes=8, n=1024)
+    rng = np.random.default_rng(19)
+    step_args += (rng.standard_normal((4, 8, 1024)).astype(np.float32),
+                  rng.integers(0, 16, (4, 8)).astype(np.int32),
+                  rng.standard_normal((8, 1024)).astype(np.float32),
+                  rng.standard_normal((8, 1024)).astype(np.float32))
+    want_step = [o.full("cpu") for o in
+                 parallel.sharded_pipeline_step(one)(*step_args)]
+    master = (rng.standard_normal((2, 4096)) * 8000).astype(np.float32)
+    rooms = 4
+    grid_args = (master, np.linspace(0.25, 1.0, rooms).astype(np.float32),
+                 (np.arange(rooms) * 2.5).astype(np.float32),
+                 np.linspace(-150.0, 150.0, rooms).astype(np.float32),
+                 np.zeros(rooms, np.float32), np.ones(rooms, np.float32))
+    want_grid = parallel.room_render_grid(one, *grid_args).full("cpu")
+    errs = {}
+    for name, mesh in meshes:
+        logical = name == "logical"
+        parts, seen, _walls = mesh_serving(mesh, name, calls, base, logical)
+        flac_outs = decode_flac_streams_device(
+            streams[:MESH_FLAC_STREAMS], FRAMES_PER_GROUP, mesh=mesh)
+        for s, (o, tr) in enumerate(zip(flac_outs, tracks)):
+            if o.shape != tr.shape or not np.array_equal(o, tr):
+                raise AssertionError(f"{name} FLAC stream {s}: decode != "
+                                     f"encoder input")
+        got = [o.full("cpu") for o in
+               parallel.sharded_pipeline_step(mesh)(*step_args)]
+        for i in (0, 1):
+            if not torch.equal(got[i], want_step[i]):
+                raise AssertionError(f"{name}: step output {i} != one "
+                                     f"device")
+        step_err = [float((got[i] - want_step[i]).abs().max())
+                    for i in (2, 3, 4)]
+        if not (max(step_err[:2]) <= 0.05 and step_err[2] <= 1e-3):
+            raise AssertionError(f"{name}: step AAC / Vorbis vs one device "
+                                 f"{step_err}")
+        full, peak = parallel.room_fanout(mesh, master)
+        if len(full.shards) != mesh.size or not all(
+                torch.equal(t.cpu(), torch.from_numpy(master))
+                for _, _, t in full.shards) \
+                or float(peak) != float(np.abs(master).max()):
+            raise AssertionError(f"{name}: a room_fanout replica differs")
+        if not torch.equal(parallel.room_render_grid(mesh, *grid_args)
+                           .full("cpu"), want_grid):
+            raise AssertionError(f"{name}: room_render_grid != one device")
+        torch.cuda.synchronize()
+        print(f"phase 19: mesh {name} {mesh.shape} on "
+              f"{[str(d) for d in mesh.flat()]}: {'; '.join(parts)}; FLAC "
+              f"== the encoder's input; sharded_pipeline_step == one device "
+              f"(rendered, meters), AAC {step_err[0]:.2e} / "
+              f"{step_err[1]:.2e}, Vorbis {step_err[2]:.2e}; "
+              f"{len(full.shards)} room_fanout replicas equal; "
+              f"room_render_grid == one device")
+        if logical:
+            errs = mesh_kernels(seen, torch.device("cuda"))
+    nch = _host.aac_bitstream.parse_adts_header(hstreams[0]).channels
+    blk = -(-MESH_HE_STREAMS // 2)
+    print(f"phase 19: HE-AAC set-up a serving block (AAC constants and an "
+          f"SbrDeviceRunner), warm median: {MESH_HE_STREAMS} streams "
+          f"{he_block_setup_ms(hstreams[0], MESH_HE_STREAMS * nch):.3f} ms, "
+          f"a block of {blk} {he_block_setup_ms(hstreams[0], blk * nch):.3f} "
+          f"ms")
+    t0 = time.perf_counter()
+    dryrun_multichip(devices=MESH_LOGICAL)
+    torch.cuda.synchronize()
+    print(f"phase 19: dryrun_multichip on {MESH_LOGICAL} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return errs
+
+
 def check_precision() -> None:
     import torch
 
@@ -2654,6 +2924,15 @@ def main() -> None:
     win_err = max(win_err, win_plugin[0])
     on_path = {k: render_launches[k] + plugin_launches[k]
                for k in render_launches}
+    check_precision()
+
+    # --- phase 19: the multi-device layer --------------------------------
+    mesh_errs = mesh_phase(streams, tracks, astreams, hstreams, mstreams)
+    lpc_err = max(lpc_err, mesh_errs["lpc"])
+    rice_err = max(rice_err, mesh_errs["rice"])
+    tns_err = max(tns_err, mesh_errs["tns"])
+    sbr_err = max(sbr_err, mesh_errs["sbr_env"])
+    win_err = max(win_err, mesh_errs["mp3_window"])
     check_precision()
 
     def bounds(b, library_ms=None):

@@ -3,9 +3,10 @@ with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A second package beside the JAX one, which stays the reference; it imports
 nothing of it.  It holds the FLAC, AAC-LC, HE-AAC v1 and v2, CELT (Opus),
-MP3 and Vorbis serving paths, the flagship decode->render step and the
-render path (a pipeline that plays a URI through the FLAC and ADTS AAC
-plug-ins into an animator):
+MP3 and Vorbis serving paths, the flagship decode->render step, the
+render path (a pipeline that plays a URI through the codec plug-ins into
+an animator) and the multi-device layer (a mesh of devices, the serving
+calls over it, the multiroom fan-out):
 
 host       its own copies of the JAX package's host code: the C++ parsers
            (built into _build/ at first use), the FLAC metadata parser and
@@ -31,9 +32,13 @@ codecs     FLAC rice decode (kernel + plain version), group synthesis and
            ``CodecAacAdts``, the plug-ins of ``default_registry(device)``
 pipeline   the render path: ``PipelineManager(device=...)`` and the
            animators, whose ``RenderBatcher`` runs the gain pass on the
-           device
-parallel   the single-device decode->render step
-entry      entry(device) -> (fn, args) for that step
+           device; ``branch.IciBranch``, the multiroom fan-out of a
+           ``Brancher`` over a mesh
+parallel   the decode->render step, the mesh (``make_mesh``, ``Sharded``,
+           ``serving_put``, the serving calls' ``mesh=``), the room
+           fan-out and per-room render grid, and the sharded pipeline step
+entry      entry(device) -> (fn, args) for that step; dryrun_multichip,
+           real decodes over a mesh against one device
 tools      measurement scripts run on the card
 
 Every public entry point runs on the card (``device="cuda"``) unless the

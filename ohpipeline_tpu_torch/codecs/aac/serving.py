@@ -25,7 +25,18 @@ stream's channels.
 The host parses group g + 1 while the device runs group g; its PCM is
 rounded on the device and copied back after the next group is queued.  No
 drain thread is involved, so an error propagates from the loop with
-nothing left running.  ``mesh=`` is not ported.
+nothing left running.
+
+With ``mesh=`` (``parallel.make_mesh``; ``device`` then stays at its
+default, and naming another raises) the streams split into contiguous
+blocks, one a dp row, each served on its row's first device by its own
+``iter_groups``, overlap and (HE) ``SbrDeviceRunner``, whose state rows are
+its block's channels: a block's wire is self-consistent, so no global row
+(``epak``, ``srow``, ``trow``) is rebased.  The batch is validated over all
+the streams first (rate and channels, one SBR header, no PS), so ``mesh=``
+raises where ``mesh=None`` does.  The blocks advance in lockstep, group g
+parsed and launched on every block before group g - 1 is collected;
+``mesh=None`` is the one-block case of the same loop.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._serving import serve_blocks, stream_blocks
 from ..._host import aac_bitstream, aac_native, sbr_native
 from ..._host import aac_sbr as SBR
 from . import sbr as SBRD
@@ -184,32 +196,36 @@ def to_device(planes: dict, device) -> dict:
 
 
 def decode_aac_streams_device(streams: list, frames_per_group: int = 64, *,
-                              device="cuda") -> list[np.ndarray]:
+                              device="cuda", mesh=None) -> list[np.ndarray]:
     """streams: ADTS AAC-LC files (bytes) sharing rate and channel count.
     Returns [(channels, nsamples) int32 PCM] per stream, rounded half to
-    even and clipped to the int16 range like the host decode path."""
+    even and clipped to the int16 range like the host decode path.  The
+    work runs on ``device``, or, with ``mesh``, on the first device of each
+    of its dp rows, a contiguous block of the streams a row."""
     nch, ri = _header(streams)
-    consts = SYN.device_constants(ri, device=device)
-    ov = torch.zeros((len(streams) * nch, 1024), dtype=torch.float32,
-                     device=device)
+    shards = stream_blocks(len(streams), mesh, device)
+    consts = [SYN.device_constants(ri, device=dev) for dev, _ in shards]
+    ovs = [torch.zeros(((blk.stop - blk.start) * nch, 1024),
+                       dtype=torch.float32, device=dev)
+           for dev, blk in shards]
+    gens = [iter_groups(streams[blk], frames_per_group) for _, blk in shards]
     outs: list[list[np.ndarray]] = [[] for _ in streams]
 
-    def collect(pcm16, counts):                 # (G, S*C, 1024) int32
+    def collect(pcm16, s0, counts):             # (G, S*C, 1024) int32
         pcm16 = pcm16.cpu().numpy()
         for s, n in counts:
             if n:
                 cols = pcm16[:n, s * nch:(s + 1) * nch]
-                outs[s].append(cols.transpose(1, 0, 2).reshape(nch, -1))
+                outs[s0 + s].append(cols.transpose(1, 0, 2).reshape(nch, -1))
 
-    pending = None
-    for planes, counts in iter_groups(streams, frames_per_group):
-        pcm, ov = decode_planes(to_device(planes, device), ov, consts)
+    def launch(i, item):
+        planes, counts = item
+        dev, blk = shards[i]
+        pcm, ovs[i] = decode_planes(to_device(planes, dev), ovs[i], consts[i])
         pcm16 = torch.round(pcm).clamp_(-32768, 32767).to(torch.int32)
-        if pending is not None:
-            collect(*pending)
-        pending = (pcm16, counts)
-    if pending is not None:
-        collect(*pending)
+        return pcm16, blk.start, counts
+
+    serve_blocks(gens, launch, collect)
     return [np.concatenate(o, axis=1) if o else np.zeros((nch, 0), np.int32)
             for o in outs]
 
@@ -247,7 +263,7 @@ def _sbr_frames(dec, s: int, payloads: list, nch: int, hdr0,
 
 
 def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
-                             device="cuda") -> list[np.ndarray]:
+                             device="cuda", mesh=None) -> list[np.ndarray]:
     """streams: ADTS HE-AAC v1 files (bytes) sharing sample rate, channel
     count and SBR header configuration.  Every stream's channels ride one
     device pass per group (the LC core, then the SBR group on the
@@ -255,48 +271,62 @@ def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
     without an SBR payload, SBR data before the first SBR header and a
     header that changes mid-stream raise ``ValueError``.  Returns
     [(channels, nsamples) int32 PCM] per stream at twice the ADTS rate,
-    rounded half to even and clipped to the int16 range."""
+    rounded half to even and clipped to the int16 range.  The work runs on
+    ``device``, or, with ``mesh``, on the first device of each of its dp
+    rows, a contiguous block of the streams a row with its own
+    ``SbrDeviceRunner``."""
     nch, ri = _header(streams)
     rate = aac_bitstream.parse_adts_header(streams[0]).sample_rate
-    S = len(streams)
-    SC = S * nch
-    consts = SYN.device_constants(ri, device=device)
+    shards = stream_blocks(len(streams), mesh, device)
+    consts = [SYN.device_constants(ri, device=dev) for dev, _ in shards]
     sbr_native()
-    decs = [SBR.SbrDecoder(rate) for _ in range(S)]
-    runner = None
+    decs = [SBR.SbrDecoder(rate) for _ in streams]
+    runners: list = []
     hdr0 = None
     outs: list[list[np.ndarray]] = [[] for _ in streams]
 
-    def collect(pcm16, counts):                 # (S*C, G*2048) int16
+    def collect(pcm16, s0, counts):             # (S*C, G*2048) int16
         pcm16 = pcm16.cpu().numpy()
         for s, n in counts:
             if n:
-                outs[s].append(pcm16[s * nch:(s + 1) * nch, :n * 2048]
-                               .astype(np.int32))
+                outs[s0 + s].append(pcm16[s * nch:(s + 1) * nch, :n * 2048]
+                                    .astype(np.int32))
 
-    pending = None
-    for planes, counts in iter_groups(streams, frames_per_group, sbr=True):
-        # dead or short channels keep empty lists: their frames stay
-        # inactive and their output is cut off in collect()
-        per_ch: list = [([], [], []) for _ in range(SC)]
-        for (s, n), payloads in zip(counts, planes["sbr"]):
-            _sbr_frames(decs[s], s, payloads, nch, hdr0,
-                        per_ch[s * nch:(s + 1) * nch])
-        if runner is None:
-            lead = next((s for s in range(S) if decs[s].header is not None),
-                        None)
+    def parsed(i: int):
+        """Block i's groups, with its streams' SBR payloads parsed and
+        dequantised: (planes, counts, per_ch)."""
+        blk = shards[i][1]
+        for planes, counts in iter_groups(streams[blk], frames_per_group,
+                                          sbr=True):
+            # dead or short channels keep empty lists: their frames stay
+            # inactive and their output is cut off in collect()
+            per_ch: list = [([], [], [])
+                            for _ in range((blk.stop - blk.start) * nch)]
+            for (s, n), payloads in zip(counts, planes["sbr"]):
+                g = blk.start + s
+                _sbr_frames(decs[g], g, payloads, nch, hdr0,
+                            per_ch[s * nch:(s + 1) * nch])
+            yield planes, counts, per_ch
+
+    def launch(i, item):
+        nonlocal hdr0
+        if not runners:     # every block's first group is parsed by now
+            lead = next((s for s, d in enumerate(decs)
+                         if d.header is not None), None)
             if lead is None:
                 raise ValueError("no SBR header in any stream")
             hdr0 = decs[lead].header
             if any(d.header is not None and d.header != hdr0 for d in decs):
                 raise ValueError("device batch needs one SBR header config")
-            runner = SBRD.SbrDeviceRunner(decs[lead], SC, device=device)
-        pcm16 = runner.decode_group_multi_zz(to_device(planes, device),
-                                             per_ch, consts)
-        if pending is not None:
-            collect(*pending)
-        pending = (pcm16, counts)
-    if pending is not None:
-        collect(*pending)
+            runners.extend(SBRD.SbrDeviceRunner(
+                decs[lead], (blk.stop - blk.start) * nch, device=dev)
+                for dev, blk in shards)
+        planes, counts, per_ch = item
+        dev, blk = shards[i]
+        pcm16 = runners[i].decode_group_multi_zz(to_device(planes, dev),
+                                                 per_ch, consts[i])
+        return pcm16, blk.start, counts
+
+    serve_blocks([parsed(i) for i in range(len(shards))], launch, collect)
     return [np.concatenate(o, axis=1) if o else np.zeros((nch, 0), np.int32)
             for o in outs]

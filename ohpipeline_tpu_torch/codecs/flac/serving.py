@@ -12,12 +12,21 @@ queued on the device's stream, and its PCM is copied back only after the
 next group has been parsed and queued.  No drain thread is involved, so an
 error (a corrupt stream, a failed launch) propagates from the loop with
 nothing left running.
+
+With ``mesh=`` (``parallel.make_mesh``; ``device`` then stays at its
+default, and naming another raises) the streams split into contiguous
+blocks, one a dp row, each served on its row's first device by its own
+``iter_groups`` (JAX's ``P("dp")`` on the stream axis): every block's wire
+is self-consistent, so no global row number is rebased.  The blocks advance
+in lockstep, group g parsed and launched on every block before group g - 1
+is collected; ``mesh=None`` is the one-block case of the same loop.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .._serving import serve_blocks, stream_blocks
 from ..._host import native, parse_metadata
 from . import RICE_PLANES, synthesise_group_rice, to_device
 
@@ -27,16 +36,23 @@ def _check_status(s: int, st: int) -> None:
         raise ValueError(f"stream {s}: rice wire status {st}")
 
 
+def _metas(streams: list) -> tuple[list, int]:
+    """The streams' metadata and their channel count; raises
+    ``ValueError`` unless every stream has the same."""
+    metas = [parse_metadata(b) for b in streams]
+    nch = metas[0].streaminfo.channels
+    for m in metas[1:]:
+        if m.streaminfo.channels != nch:
+            raise ValueError("device batch needs a uniform channel count")
+    return metas, nch
+
+
 class _Layout:
     """Shapes shared by every group of one serving call."""
 
     def __init__(self, streams: list, frames_per_group: int):
         self.streams = streams
-        self.metas = [parse_metadata(b) for b in streams]
-        self.nch = self.metas[0].streaminfo.channels
-        for m in self.metas[1:]:
-            if m.streaminfo.channels != self.nch:
-                raise ValueError("device batch needs a uniform channel count")
+        self.metas, self.nch = _metas(streams)
         stride = max(m.streaminfo.max_blocksize for m in self.metas)
         self.stride = -(-stride // 64) * 64
         self.S = len(streams)
@@ -147,28 +163,31 @@ def iter_groups(streams: list, frames_per_group: int = 32):
 
 
 def decode_flac_streams_device(streams: list, frames_per_group: int = 32, *,
-                               device="cuda") -> list[np.ndarray]:
+                               device="cuda", mesh=None) -> list[np.ndarray]:
     """streams: FLAC files (bytes) sharing a channel count (bit depths and
     lengths may differ).  Returns [(channels, nsamples) int32 PCM] per
-    stream, bit-exact with the host decode."""
+    stream, bit-exact with the host decode.  The work runs on ``device``,
+    or, with ``mesh``, on the first device of each of its dp rows, a
+    contiguous block of the streams a row (the result is the same)."""
     Gc = frames_per_group
-    nch = parse_metadata(streams[0]).streaminfo.channels
+    _, nch = _metas(streams)
+    shards = stream_blocks(len(streams), mesh, device)
+    gens = [iter_groups(streams[blk], Gc) for _, blk in shards]
     outs: list[list[np.ndarray]] = [[] for _ in streams]
 
-    def collect(pcm, meta_rows):               # (S*Gc, nch, stride)
+    def collect(pcm, s0, meta_rows):           # (S*Gc, nch, stride)
         pcm = pcm.cpu().numpy()
         for s, n, sizes in meta_rows:
             for f in range(n):
-                outs[s].append(pcm[s * Gc + f, :, :sizes[f]])
+                outs[s0 + s].append(pcm[s * Gc + f, :, :sizes[f]])
 
-    pending = None
-    for planes, meta_rows in iter_groups(streams, Gc):
-        t = to_device(planes, device)
+    def launch(i, item):
+        planes, meta_rows = item
+        dev, blk = shards[i]
+        t = to_device(planes, dev)
         pcm = synthesise_group_rice(*(t[k] for k in RICE_PLANES), nch)
-        if pending is not None:
-            collect(*pending)
-        pending = (pcm, meta_rows)
-    if pending is not None:
-        collect(*pending)
+        return pcm, blk.start, meta_rows
+
+    serve_blocks(gens, launch, collect)
     return [np.concatenate(o, axis=1) if o else np.zeros((nch, 0), np.int32)
             for o in outs]

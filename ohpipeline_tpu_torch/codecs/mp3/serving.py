@@ -15,6 +15,15 @@ groups.  The host parses group g + 1 while the device runs group g, whose
 PCM is copied back after the next group is queued: one group in flight and
 no drain thread (the reference's ``ThreadedDrainer`` hangs when its sink
 raises while its queue is full).
+
+With ``mesh=`` (``parallel.make_mesh``; ``device`` then stays at its
+default, and naming another raises) the streams split into contiguous
+blocks, one a dp row, each served on its row's first device with its own
+parsers, overlap and V-FIFO state and its own ``n_real``; the batch checks
+run over all the streams first, so ``mesh=`` raises where ``mesh=None``
+does.  The blocks advance in lockstep, group g packed and launched on every
+block before group g - 1 is collected; ``mesh=None`` is the one-block case
+of the same loop.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._serving import serve_blocks, stream_blocks
 from ...host.codecs.mp3 import bitstream as BS
 from . import parse_vbr_header, prepare_granules
 from . import synthesis as SYN
@@ -78,7 +88,7 @@ def pack_group(parsers: list, live: list, G: int, nch: int, Tg: int):
 
 
 def decode_mp3_streams_device(streams: list, frames_per_group: int = 32, *,
-                              device="cuda") -> list:
+                              device="cuda", mesh=None) -> list:
     """streams: MP3 files (bytes) sharing MPEG version, sample rate and
     channel count; mismatches raise ``ValueError``, as does a granule count
     per group (frames_per_group x granules per frame) that is not a power of
@@ -86,47 +96,57 @@ def decode_mp3_streams_device(streams: list, frames_per_group: int = 32, *,
     whose frames stop parsing early ends early.  Padding granules past a
     group's longest stream never advance the state; a stream that ends
     inside a group has its state advanced by the padding, and is not read
-    again."""
+    again.  The work runs on ``device``, or, with ``mesh``, on the first
+    device of each of its dp rows, a contiguous block of the streams a row
+    (each block's longest stream sets its groups' length)."""
     hdrs = _check_batch(streams)
     h0 = hdrs[0]
-    S, nch = len(streams), h0.channels
+    nch = h0.channels
     G = frames_per_group
     Tg = G * h0.granule_count
     if Tg <= 0 or Tg & (Tg - 1):
         raise ValueError("frames_per_group * granules must be a power "
                          "of two (one compiled shape per batch)")
-    dev = torch.device(device)
-    ov, vf = SYN.init_state(S * nch, dev)
     parsers = []
     for data, h in zip(streams, hdrs):
         st = BS.Mp3Stream(data)
         if parse_vbr_header(data, h):       # the Xing/VBRI frame: no audio
             st.pos = h.frame_bytes
         parsers.append(st)
-    live = [True] * S
-    outs: list[list[np.ndarray]] = [[] for _ in range(S)]
+    shards = stream_blocks(len(streams), mesh, device)
+    states = [SYN.init_state((blk.stop - blk.start) * nch, dev)
+              for dev, blk in shards]
+    lives = [[True] * (blk.stop - blk.start) for _, blk in shards]
+    outs: list[list[np.ndarray]] = [[] for _ in streams]
 
-    def sink(pcm, counts):                          # (n_real, S * nch, 576)
+    def sink(pcm, s0, counts):                      # (n_real, S * nch, 576)
         pcm = pcm.cpu().numpy()
         for s, tg in enumerate(counts):
             if tg:
                 cols = pcm[:tg, s * nch:(s + 1) * nch]
-                outs[s].append(cols.transpose(1, 0, 2).reshape(nch, -1))
+                outs[s0 + s].append(cols.transpose(1, 0, 2).reshape(nch, -1))
 
-    pending = None
-    while any(live):
-        wire, counts, n_real = pack_group(parsers, live, G, nch, Tg)
-        if not n_real:
-            break
+    def groups(i: int):
+        """Shard i's groups: (wire, counts, n_real) until its streams end."""
+        blk = shards[i][1]
+        while any(lives[i]):
+            wire, counts, n_real = pack_group(parsers[blk], lives[i], G, nch,
+                                              Tg)
+            if not n_real:
+                return
+            yield wire, counts, n_real
+
+    def launch(i, item):
+        (q16, scl, btp), counts, n_real = item
+        dev, blk = shards[i]
         # the group's longest stream sets its length (the JAX program keeps
         # Tg for one compiled shape; the granules past n_real are zeros)
-        q16, scl, btp = (torch.from_numpy(a[:n_real]).to(dev) for a in wire)
-        pcm, ov, vf = SYN.hybrid_synthesis_parallel_i16(
-            q16, scl, btp, ov, vf, n_real)
-        if pending is not None:
-            sink(*pending)
-        pending = (pcm, counts)
-    if pending is not None:
-        sink(*pending)
+        q16, scl, btp = (torch.from_numpy(a[:n_real]).to(dev)
+                         for a in (q16, scl, btp))
+        pcm, *states[i] = SYN.hybrid_synthesis_parallel_i16(
+            q16, scl, btp, *states[i], n_real)
+        return pcm, blk.start, counts
+
+    serve_blocks([groups(i) for i in range(len(shards))], launch, sink)
     return [np.concatenate(o, axis=1) if o else np.zeros((nch, 0), np.int32)
             for o in outs]

@@ -9,8 +9,8 @@ SpotifyReporter/AirplayReporter (sample-counting + out-of-band track
 change), AudioDumper (debug tap writing encoded audio to disk).
 
 The port's copy of the JAX package's ``pipeline/branch.py`` without
-``IciBranch``, the multiroom fan-out over a device mesh, which comes with
-the port of the mesh functions.
+``IciBranch``, the multiroom fan-out over a device mesh, which is the
+port's ``pipeline/branch.py`` (on ``parallel.room_fanout``).
 """
 
 from __future__ import annotations

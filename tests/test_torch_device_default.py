@@ -1,6 +1,9 @@
 """Every public entry point of the port runs on the card unless the caller
 asks for the CPU: ``device`` defaults to "cuda", and without a card a call
-that names no device raises; it does not run on the CPU."""
+that names no device raises; it does not run on the CPU.  The same holds
+for the mesh: ``make_mesh()`` spans the visible cards, so with none (and no
+named devices) it raises, as do the calls built on it, and a mesh of more
+cards than there are raises."""
 
 import inspect
 import pathlib
@@ -9,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from ohpipeline_tpu_torch import _host
+from ohpipeline_tpu_torch import _host, parallel
 from ohpipeline_tpu_torch.codecs import aac
 from ohpipeline_tpu_torch.codecs.aac import sbr as aac_sbr
 from ohpipeline_tpu_torch.codecs.aac import serving as aac_serving
@@ -17,7 +20,7 @@ from ohpipeline_tpu_torch.codecs.flac import serving as flac_serving
 from ohpipeline_tpu_torch.codecs.mp3 import serving as mp3_serving
 from ohpipeline_tpu_torch.codecs.opus import celt
 from ohpipeline_tpu_torch.codecs.vorbis import device as vorbis_device
-from ohpipeline_tpu_torch.entry import entry
+from ohpipeline_tpu_torch.entry import dryrun_multichip, entry
 
 ASSETS = pathlib.Path(__file__).resolve().parent / "assets"
 
@@ -126,3 +129,28 @@ def test_without_a_card_a_class_naming_no_device_raises(name):
     _, use = CLASSES[name]
     with pytest.raises((AssertionError, RuntimeError)):
         use()
+
+
+#: Mesh calls that name no device: they span the visible cards.
+MESH_CALLS = {
+    "make_mesh": lambda: parallel.make_mesh(),
+    "dryrun_multichip": lambda: dryrun_multichip(),
+    "sharded_pipeline_step": lambda: parallel.sharded_pipeline_step(
+        parallel.make_mesh()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MESH_CALLS))
+def test_without_a_card_a_mesh_naming_no_device_raises(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MESH_CALLS[name]()
+
+
+def test_a_mesh_of_more_cards_than_there_are_raises():
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError):
+        parallel.make_mesh(n + 1)
+    with pytest.raises(RuntimeError):
+        parallel.make_mesh(devices=[f"cuda:{n}"])

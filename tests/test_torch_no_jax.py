@@ -1,8 +1,9 @@
 """The port stands alone: it decodes FLAC, AAC-LC, HE-AAC v1 (serving, and the
 ADTS codec plug-in), HE-AAC v2 groups (the parametric-stereo runner), CELT,
-MP3 and Vorbis, runs the flagship step and plays FLAC, MP3, M4A, ALAC and
-SILK files through its pipeline with every import of jax and of
-ohpipeline_tpu failing, in
+MP3 and Vorbis, runs the flagship step, plays FLAC, MP3, M4A, ALAC and
+SILK files through its pipeline, serves FLAC over a mesh (``mesh=``) and
+fans a branch out to its devices (``IciBranch``) with every import of jax
+and of ohpipeline_tpu failing, in
 the repository and in a directory that holds only the port, chip_smoke.py and
 the test assets; no module of ohpipeline_tpu is ever loaded; its HE path
 parses every SBR payload natively; its copies of the JAX package's .cc,
@@ -126,6 +127,23 @@ _BLOCKED = textwrap.dedent("""
             sink, _wall, _batcher = chip_smoke.render_play(path, "cpu")
             assert sink.infos[0].codec_name == name and sink.pcm.any(), name
         assert (sink.pcm == alac_pcm).all()
+    from ohpipeline_tpu_torch import parallel
+    from ohpipeline_tpu_torch.host.core import events as ev
+    from ohpipeline_tpu_torch.host.core.streaminfo import PcmStreamInfo
+    from ohpipeline_tpu_torch.pipeline.branch import IciBranch
+
+    mesh = parallel.make_mesh(devices=["cpu"] * 4)
+    outs = decode_flac_streams_device([data, data, data], frames_per_group=8,
+                                      mesh=mesh)
+    assert len(outs) == 3 and all((o == x).all() for o in outs)
+    ici = IciBranch(mesh)
+    info = PcmStreamInfo(sample_rate=44100, bit_depth=16, num_channels=2)
+    ici.push(ev.AudioPcmEvent(x[:, :1500], info))
+    ici.push(ev.HaltEvent())
+    assert ici.tiles_sent == 2 and len(ici.rooms()) == 4
+    tail = np.zeros((2, IciBranch.TILE), np.float32)
+    tail[:, :1500 - 1024] = x[:, 1024:1500]
+    assert all((room == tail).all() for room in ici.rooms())
     loaded = [m for m in sys.modules if m == "ohpipeline_tpu"
               or m.startswith("ohpipeline_tpu.")]
     assert loaded == ["ohpipeline_tpu"], loaded     # the blocking None
