@@ -175,7 +175,28 @@ Phases, each ending in torch.cuda.synchronize():
      (rendered and meters bit-exact, AAC PCM within 0.05, the Vorbis IMDCT
      within 1e-3), every room_fanout replica equal to its input, and
      room_render_grid equal to the one-entry grid; then
-     dryrun_multichip(devices=MESH_LOGICAL).
+     dryrun_multichip(devices=MESH_LOGICAL);
+ 20. the Av layer (media_player_phase): a MediaPlayer(device="cuda") with
+     the JAX end-to-end tests' pipeline params and Volume.Limit 100 plays a
+     playlist through its Playlist source (track database inserts, then
+     seek_id of the first) into an AnimatorBatch on the card, gaplessly to
+     the pipeline's halt: phase 0's first CD FLAC stream, its first 24-bit
+     / 96 kHz stream, phase 13's first MP3 stream and dryrun_he.aac, so the
+     play crosses 44.1 -> 96 -> 44.1 kHz.  At volume 100 (unity) both FLAC
+     tracks equal the encoder input; at volume 50 the volume chain's
+     attenuation reaches the RenderBatcher's gain pass on the card (its
+     apply_gain calls counted, one a non-unity tile), and the play is held
+     to the same play on the CPU (FLAC bit for bit, MP3 <= 1 LSB, HE-AAC
+     <= 2); in that play lpc launches equal the FLAC groups, mp3_window
+     launches the MP3 groups (ceil(frames / 16)) and sbr_env runs; the
+     pipeline announces the tracks in the database's order.  Its warm
+     wall, decoded s per wall s and a traced play's idle share are
+     printed.  The Radio source's play_uri of the CD file equals the
+     encoder input, and a mute through the volume chain after 3 pulled
+     events leaves the track up to that point and zero after it.  The LPC,
+     MP3 window and SBR envelope kernels are held against their plain
+     versions on the inputs of their first launch in the first play, at
+     the gates of phases 2, 13 and 8, and timed.
 
 A kernel's time is the mean of 20 launches captured in one CUDA graph
 (kernel_ms: a launch from Python takes longer on the host than a short
@@ -184,8 +205,10 @@ CUDA events (cuda_ms).  Each kernel's record carries its bound: the larger
 of the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
 tensor cores), the published peaks of an H100 SXM at 700 W, from this run's
-inputs, and whether the plays of the render path that phases 17-18
-count launched it and how often (on_render_path, render_launches).  No single
+inputs, whether the plays of the render path that phases 17-18 count
+launched it and how often (on_render_path, render_launches), and how often
+phase 20's counted playlist play launched it (media_player_launches).  No
+single
 PyTorch call computes the recurrences of the LPC,
 rice, TNS, SBR-envelope, CELT-comb and PS kernels, so their library_ms
 is null; the MP3 window pass's is the time
@@ -1666,6 +1689,101 @@ def realtime_play(path: str, device, n: int, limit_s: float = 30.0):
     return pcm, sink.samples - pcm.shape[1], anim, wall
 
 
+class TrackIds:
+    """A pipeline observer that keeps the id of each track the pipeline's
+    Reporter announces, in order."""
+
+    def __init__(self):
+        self.ids = []
+
+    def notify_track(self, track, start_of_stream: bool) -> None:
+        self.ids.append(track.id)
+
+
+def media_player(device, volume: int = 100):
+    """The port's MediaPlayer on ``device`` with the JAX end-to-end tests'
+    pipeline params (:func:`render_params`), started (the Playlist source is
+    current), Volume.Limit 100 and the volume at ``volume``: 100 is unity
+    gain, so the render chain's gain pass has nothing to do."""
+    from ohpipeline_tpu_torch import av, pipeline
+
+    player = av.MediaPlayer(av.MediaPlayerInitParams(
+        pipeline_params=render_params(pipeline.PipelineInitParams())),
+        device=device)
+    try:
+        player.start()
+        player.config.get("Volume.Limit").set(100)
+        player.volumes.set_volume(volume)
+    except BaseException:
+        player.quit()
+        raise
+    return player
+
+
+def playlist(paths):
+    """A start for :func:`player_run`: inserts ``paths`` (files) into the
+    Playlist source's track database in order and plays from the first;
+    returns their database ids."""
+
+    def start(player) -> list:
+        ids, after = [], 0
+        for path in paths:
+            after = player.source_playlist.db.insert(after, f"file://{path}")
+            ids.append(after)
+        player.source_playlist.seek_id(ids[0])
+        return ids
+
+    return start
+
+
+def player_run(player, start, midway: Optional[tuple] = None,
+               animator=None):
+    """Calls start(player) and runs an AnimatorBatch on the player's device
+    to the pipeline's halt, then quits the player.  With ``midway`` (n,
+    action), the animator pulls n events, action(player) is called (a mute,
+    say) and the run goes on.  ``animator(upstream, sink)`` builds another
+    animator (the JAX package's, for a MediaPlayer of the JAX package).
+    Returns (sink, wall seconds, the animator's RenderBatcher, the ids of
+    the tracks the pipeline announced, start's result, the samples the sink
+    had when the action was called)."""
+    import torch
+    from ohpipeline_tpu_torch import pipeline
+
+    try:
+        sink, tracks = Sink(), TrackIds()
+        player.pipeline.add_observer(tracks)
+        upstream = player.pipeline.pipeline.predriver
+        anim = (animator(upstream, sink) if animator else
+                pipeline.AnimatorBatch(upstream, sink, device=player.device))
+        t0 = time.perf_counter()
+        started = start(player)
+        acted_at = None
+        if midway:
+            anim.run(max_events=midway[0])
+            acted_at = sink.samples
+            midway[1](player)
+        anim.run()
+        if getattr(player, "device", torch.device("cpu")).type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        player.pipeline.flush_observers()
+    finally:
+        player.quit()
+    return sink, wall, anim.batcher, tracks.ids, started, acted_at
+
+
+def stream_pcm(sink) -> list:
+    """The sink's output split at each change of stream: a list of (stream
+    info, (channels, samples) PCM)."""
+    out = []
+    for chunk, info in zip(sink.chunks, sink.infos):
+        if out and out[-1][0] is info:
+            out[-1][1].append(chunk)
+        else:
+            out.append((info, [chunk]))
+    return [(info, np.concatenate(chunks, axis=1)) for info, chunks in out]
+
+
 def count_calls(module, name: str, run) -> tuple:
     """Runs run() with ``module.name`` wrapped, for that time only, to count
     its calls.  Returns (run()'s result, the count)."""
@@ -2133,6 +2251,158 @@ def render_phase(jobs, tracks, streams, device="cuda") -> tuple:
     return check_lpc("render path group 0", render_lpc, phase=17), played
 
 
+#: phase 20's playlist: name -> the card's gate against the CPU at volume 50
+#: in LSB (FLAC bit for bit, as phase 17's ramp run)
+PLAYER_GATES = {"cd": 0, "hires": 0, "mp3": 1, "he": 2}
+PLAYER_CODECS = ["FLAC", "FLAC", "MP3", "HE-AAC"]
+
+
+def player_files(tmp: str, streams, mstreams) -> list:
+    """Phase 20's playlist as files in ``tmp``: phase 0's first CD and
+    first 24-bit / 96 kHz FLAC streams, phase 13's first MP3 stream and
+    tests/assets/dryrun_he.aac (HE-AAC v1)."""
+    paths = []
+    for name, data in (("cd.flac", streams[0]),
+                       ("hires.flac", streams[len(CD_SEEDS)]),
+                       ("mp3.mp3", mstreams[0])):
+        paths.append(os.path.join(tmp, name))
+        with open(paths[-1], "wb") as f:
+            f.write(data)
+    return paths + [HE_ASSET]
+
+
+def radio_uri(path: str):
+    """A start for :func:`player_run`: the Radio source plays ``path``."""
+
+    def start(player) -> None:
+        player.product.set_source_by_name("Radio")
+        player.source_radio.play_uri(f"file://{path}")
+
+    return start
+
+
+def media_player_phase(tracks, streams, mstreams, device="cuda") -> tuple:
+    """Phase 20: the Av layer's MediaPlayer on ``device`` (see the module
+    docstring).  Returns ({kernel: (args, result) of its first launch in
+    the first play}, the kernels' launches in the counted play)."""
+    import torch
+    from ohpipeline_tpu_torch import _kernels
+    from ohpipeline_tpu_torch._host import mp3_bitstream
+    from ohpipeline_tpu_torch.codecs import flac as flac_codec
+    from ohpipeline_tpu_torch.codecs import mp3 as mp3_codec
+    from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
+    from ohpipeline_tpu_torch.codecs.mp3 import synthesis as msyn
+    from ohpipeline_tpu_torch.ops import lpc as lpc_ops
+    from ohpipeline_tpu_torch.ops import pcm as pcm_ops
+    from ohpipeline_tpu_torch.tools import trace_call
+
+    stream, mp3_frames = mp3_bitstream.Mp3Stream(mstreams[0]), 0
+    while stream.next_frame() is not None:
+        mp3_frames += 1
+    mp3_groups = -(-mp3_frames // mp3_codec.GROUP_FRAMES)
+    flac_tracks = {"cd": tracks[0], "hires": tracks[len(CD_SEEDS)]}
+    t_phase = time.perf_counter()
+
+    def outputs(sink, track_ids, ids, what: str) -> dict:
+        parts = stream_pcm(sink)
+        if [i.codec_name for i, _ in parts] != PLAYER_CODECS \
+                or track_ids != ids or len(ids) != len(PLAYER_GATES):
+            raise AssertionError(
+                f"phase 20 {what}: streams "
+                f"{[i.codec_name for i, _ in parts]}, tracks {track_ids} "
+                f"for playlist ids {ids}")
+        return dict(zip(PLAYER_GATES, parts))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = player_files(tmp, streams, mstreams)
+        start = playlist(paths)
+        # the first play, at unity: the FLAC tracks are the encoder input
+        first, seen = first_calls_of(
+            [(lpc_ops, "lpc_synthesize"), (msyn, "mp3_window"),
+             (sbrd, "envelope_scan")],
+            lambda: player_run(media_player(device), start))
+        unity = outputs(first[0], first[3], first[4], "unity")
+        for name, track in flac_tracks.items():
+            if not np.array_equal(unity[name][1], track):
+                raise AssertionError(f"phase 20 unity: {name} != encoder "
+                                     f"input")
+        # the counted play, at volume 50: its launches alone
+        _kernels.reset_launches()
+        ((run, mp3_n), flac_n), gain_n = count_calls(
+            pcm_ops, "apply_gain", lambda: count_calls(
+                flac_codec, "synthesise_batch", lambda: count_calls(
+                    mp3_codec, "decode_frames_lazy", lambda: player_run(
+                        media_player(device, 50), start))))
+        launches = dict(_kernels.launches)
+        sink, wall, batcher, track_ids = run[:4]
+        half = outputs(sink, track_ids, run[4], "volume 50")
+        if launches["lpc"] != flac_n or flac_n == 0 \
+                or launches["mp3_window"] != mp3_n or mp3_n != mp3_groups \
+                or launches["sbr_env"] <= 0:
+            raise AssertionError(
+                f"phase 20: launches {launches} for {flac_n} FLAC groups "
+                f"and {mp3_n} MP3 groups (want {mp3_groups})")
+        if batcher.device != torch.device(device) or gain_n == 0 \
+                or batcher.gain_tiles != gain_n:
+            raise AssertionError(
+                f"phase 20: the gain pass ran {gain_n} times "
+                f"({batcher.gain_tiles} tiles) on {batcher.device}")
+        # the same play on the CPU
+        t_cpu = time.perf_counter()
+        cpu_run = player_run(media_player("cpu", 50), start)
+        t_cpu = time.perf_counter() - t_cpu
+        cpu = outputs(cpu_run[0], cpu_run[3], cpu_run[4], "cpu")
+        errs = []
+        for name, gate in PLAYER_GATES.items():
+            (info, got), (cinfo, want) = half[name], cpu[name]
+            if got.shape != want.shape or info.sample_rate \
+                    != cinfo.sample_rate:
+                raise AssertionError(f"phase 20 {name}: card {got.shape} "
+                                     f"!= cpu {want.shape}")
+            lsb = int(np.abs(got.astype(np.int64) - want).max())
+            if lsb > gate:
+                raise AssertionError(f"phase 20 {name}: card vs CPU {lsb} "
+                                     f"LSB, gate {gate}")
+            errs.append(f"{name} ({info.codec_name}, {info.sample_rate} Hz, "
+                        f"{got.shape[1] / info.sample_rate:.2f} s) <= {lsb}")
+        decoded_s = sum(p.shape[1] / i.sample_rate for i, p in half.values())
+        print(f"phase 20: MediaPlayer(device={device!r}) Playlist of "
+              f"{len(paths)} tracks, one gapless play to the halt: unity "
+              f"FLAC == encoder input (first play {first[1]:.3f} s); at "
+              f"volume 50 card vs cpu in LSB: {'; '.join(errs)}; track ids "
+              f"{track_ids} in the playlist's order")
+        print(f"phase 20: counted play at volume 50: warm wall {wall:.3f} s "
+              f"for {decoded_s:.2f} s of audio, {decoded_s / wall:.1f} "
+              f"decoded s per wall s; {flac_n} FLAC groups, {mp3_n} MP3 "
+              f"groups, launches {launches}; the gain pass ran {gain_n} "
+              f"times on {batcher.device}")
+        _prof, _events, trace = trace_call(
+            lambda: player_run(media_player(device, 50), start))
+        print(f"phase 20: traced play {trace['wall_s']:.3f} s, device busy "
+              f"{trace['device_busy_ms']:.2f} ms, idle share "
+              f"{trace['idle_share']:.4f}")
+        # the Radio source, and a mute through the volume chain
+        radio = player_run(media_player(device), radio_uri(paths[0]))[0]
+        if not np.array_equal(radio.pcm, flac_tracks["cd"]):
+            raise AssertionError("phase 20 radio: play_uri != encoder input")
+        sink, _, batcher, _, _, at = player_run(
+            media_player(device), playlist(paths[:1]),
+            midway=(3, lambda player: player.volumes.mute()))
+        track = flac_tracks["cd"]
+        if not 0 < at < track.shape[1] or sink.samples != track.shape[1] \
+                or not np.array_equal(sink.pcm[:, :at], track[:, :at]) \
+                or sink.pcm[:, at:].any():
+            raise AssertionError(f"phase 20 mute at sample {at}: the output "
+                                 f"is not the track up to it and zero after")
+        print(f"phase 20: Radio play_uri of the CD file == encoder input; a "
+              f"mute after 3 events: the track up to sample {at}, zero for "
+              f"the {track.shape[1] - at} after it ({batcher.gain_tiles} "
+              f"tiles through the gain pass)")
+    print(f"phase 20: the plays took {time.perf_counter() - t_phase:.1f} s, "
+          f"{t_cpu:.1f} s of it the CPU play")
+    return seen, launches
+
+
 def first_calls_of(targets, run) -> tuple:
     """first_calls over several (module, name) targets at once: (run()'s
     result, {name: (args, result)} of each target's first call)."""
@@ -2393,7 +2663,7 @@ def main() -> None:
              "smoke test runs the port on an NVIDIA GPU")
 
     # --- phase 0: content, encoded in spawned workers ----------------------
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     jobs, encoded = flac_content()
     tracks = [t for t, _ in encoded]
     streams = [b for _, b in encoded]
@@ -2935,15 +3205,29 @@ def main() -> None:
     win_err = max(win_err, mesh_errs["mp3_window"])
     check_precision()
 
+    # --- phase 20: the Av layer's MediaPlayer on the card -----------------
+    seen, player_launches = media_player_phase(tracks, streams, mstreams)
+    lpc_err = max(lpc_err, check_lpc("media player group 0",
+                                     list(seen["lpc_synthesize"][0]),
+                                     phase=20)[0])
+    win_err = max(win_err, check_mp3_window("media player group 0",
+                                            *seen["mp3_window"][0],
+                                            phase=20)[0])
+    sbr_err = max(sbr_err, check_sbr_env("media player group 0",
+                                         seen["envelope_scan"][0],
+                                         phase=20)[0])
+    check_precision()
+
     def bounds(b, library_ms=None):
         return {"bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
 
     def flag(name):
         """Whether the render path's counted plays (phase 17's warm FLAC
         and ADTS plays, phase 18's warm plays) launched the kernel, and how
-        often."""
+        often; and how often phase 20's counted playlist play did."""
         return {"on_render_path": on_path[name] > 0,
-                "render_launches": on_path[name]}
+                "render_launches": on_path[name],
+                "media_player_launches": player_launches[name]}
 
     kernels = [
         {"name": "lpc", "route": "cuda",
@@ -2989,6 +3273,7 @@ def main() -> None:
          "ms": psm_ms, "plain_ms": psm_plain_ms, **bounds(psm_bound),
          **flag("ps_mix")},
     ]
+    print(f"phases 0-20 in {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

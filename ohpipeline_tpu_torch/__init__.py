@@ -5,8 +5,9 @@ A second package beside the JAX one, which stays the reference; it imports
 nothing of it.  It holds the FLAC, AAC-LC, HE-AAC v1 and v2, CELT (Opus),
 MP3 and Vorbis serving paths, the flagship decode->render step, the
 render path (a pipeline that plays a URI through the codec plug-ins into
-an animator) and the multi-device layer (a mesh of devices, the serving
-calls over it, the multiroom fan-out):
+an animator), the multi-device layer (a mesh of devices, the serving
+calls over it, the multiroom fan-out) and the Av layer (the media player
+with its sources and volume chain):
 
 host       its own copies of the JAX package's host code: the C++ parsers
            (built into _build/ at first use), the FLAC metadata parser and
@@ -16,7 +17,9 @@ host       its own copies of the JAX package's host code: the C++ parsers
            packet decoder, host synthesis and stream builder; the
            pipeline's events, protocols, containers, host plug-ins (WAV,
            AIFF, raw PCM, DSD), element chain, codec controller and
-           assembly
+           assembly; the playlist parsers and the Av layer's product,
+           sources, volume chain, config, power, credentials, pins and
+           services
 _host      the names the port's modules use for those
 _kernels   nvcc build, ctypes binding and launch counters of csrc/*.cu
 ops        LPC synthesis (kernel + plain version) and PCM DSP
@@ -34,6 +37,9 @@ pipeline   the render path: ``PipelineManager(device=...)`` and the
            animators, whose ``RenderBatcher`` runs the gain pass on the
            device; ``branch.IciBranch``, the multiroom fan-out of a
            ``Brancher`` over a mesh
+av         ``MediaPlayer(device=...)``, the composition root: its Playlist
+           and Radio sources play through the pipeline on the device, and
+           its volume chain sets the gain the animator applies there
 parallel   the decode->render step, the mesh (``make_mesh``, ``Sharded``,
            ``serving_put``, the serving calls' ``mesh=``), the room
            fan-out and per-room render grid, and the sharded pipeline step

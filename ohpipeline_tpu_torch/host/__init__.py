@@ -9,7 +9,9 @@ and ALAC host files and their ``.npz`` tables (byte copies), the host
 plug-ins (WAV, AIFF, raw PCM, DSD, ALAC, Opus in Ogg and MP4, Vorbis) and
 the containers the codec controller sniffs;
 ``core/`` the pipeline's timebase, stream description, events and ramps;
-``protocols/`` the URI protocols; ``pipeline/`` the element chain,
+``protocols/`` the URI protocols and playlist parsers; ``av/`` the Av
+layer's host modules (product, sources, volume, config, power, services,
+the receiver sources); ``pipeline/`` the element chain,
 reservoirs, codec controller and assembly; ``ops/pcm.py`` the numpy byte
 packers.  ``codecs/aac/sbr_host.py``, ``codecs/mp3/bitstream.py``,
 ``codecs/vorbis/synthesis.py``, ``codecs/opus/silk.py``,

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from ohpipeline_tpu_torch import _host, parallel
+from ohpipeline_tpu_torch import _host, av, parallel
 from ohpipeline_tpu_torch.codecs import aac
 from ohpipeline_tpu_torch.codecs.aac import sbr as aac_sbr
 from ohpipeline_tpu_torch.codecs.aac import serving as aac_serving
@@ -113,6 +113,7 @@ CLASSES = {
                         lambda: aac_sbr.SbrDeviceRunner(_sbr_decoder())),
     "SbrPsDeviceRunner": (aac_sbr.SbrPsDeviceRunner,
                           lambda: aac_sbr.SbrPsDeviceRunner(_sbr_decoder())),
+    "MediaPlayer": (av.MediaPlayer, lambda: av.MediaPlayer()),
 }
 
 

@@ -1,8 +1,9 @@
 """The port stands alone: it decodes FLAC, AAC-LC, HE-AAC v1 (serving, and the
 ADTS codec plug-in), HE-AAC v2 groups (the parametric-stereo runner), CELT,
 MP3 and Vorbis, runs the flagship step, plays FLAC, MP3, M4A, ALAC and
-SILK files through its pipeline, serves FLAC over a mesh (``mesh=``) and
-fans a branch out to its devices (``IciBranch``) with every import of jax
+SILK files through its pipeline, serves FLAC over a mesh (``mesh=``),
+fans a branch out to its devices (``IciBranch``) and plays a tone through
+its MediaPlayer's Playlist source at volume 50 with every import of jax
 and of ohpipeline_tpu failing, in
 the repository and in a directory that holds only the port, chip_smoke.py and
 the test assets; no module of ohpipeline_tpu is ever loaded; its HE path
@@ -144,6 +145,26 @@ _BLOCKED = textwrap.dedent("""
     tail = np.zeros((2, IciBranch.TILE), np.float32)
     tail[:, :1500 - 1024] = x[:, 1024:1500]
     assert all((room == tail).all() for room in ici.rooms())
+    from ohpipeline_tpu_torch import av
+    from ohpipeline_tpu_torch.host.av import services
+    from ohpipeline_tpu_torch.host.protocols import playlists
+
+    def tone(player):
+        track_id = player.source_playlist.db.insert(
+            0, "tone://sine.wav?duration=1")
+        player.source_playlist.seek_id(track_id)
+        return [track_id]
+
+    player = chip_smoke.media_player("cpu", volume=50)
+    sink, _wall, batcher, track_ids, ids, _ = chip_smoke.player_run(player,
+                                                                    tone)
+    assert sink.pcm.shape == (2, 44100) and sink.pcm.any()
+    assert batcher.gain_tiles > 0 and track_ids == ids == [1]
+    assert isinstance(player, av.MediaPlayer)
+    assert playlists.extract_stream_uris(
+        b"<opml><body><outline type='audio' URL='http://a/s.mp3'/></body>"
+        b"</opml>") == ["http://a/s.mp3"]
+    assert services.parse_opml
     loaded = [m for m in sys.modules if m == "ohpipeline_tpu"
               or m.startswith("ohpipeline_tpu.")]
     assert loaded == ["ohpipeline_tpu"], loaded     # the blocking None
@@ -214,7 +235,13 @@ PY_COPIES = (
     "protocols/rtsp.py",
     "pipeline/elements.py", "pipeline/control.py", "pipeline/reservoirs.py",
     "pipeline/supply.py", "pipeline/filler.py", "pipeline/starvation.py",
-    "pipeline/latency.py", "pipeline/observer.py")
+    "pipeline/latency.py", "pipeline/observer.py",
+    "protocols/playlists.py",
+    "av/config.py", "av/power.py", "av/product.py", "av/misc.py",
+    "av/ops_support.py", "av/volume.py", "av/sources.py",
+    "av/credentials.py", "av/oauth.py", "av/pins.py", "av/podcasts.py",
+    "av/reactions.py", "av/sender.py", "av/services.py", "av/raat.py",
+    "av/receiver_sources.py")
 
 
 @pytest.mark.parametrize("rel", PY_COPIES)
