@@ -196,6 +196,42 @@ Phases, each ending in torch.cuda.synchronize():
      events leaves the track up to that point and zero after it.  The LPC,
      MP3 window and SBR envelope kernels are held against their plain
      versions on the inputs of their first launch in the first play, at
+     the gates of phases 2, 13 and 8, and timed;
+ 21. the net layer (net_phase).  (a) The control plane: a
+     MediaPlayer(device="cuda") with Volume.Limit 100, an OdpServer with
+     make_device(player) on 127.0.0.1 and an OdpClient, through which alone
+     phase 20's CD FLAC, MP3 and HE-AAC tracks are inserted
+     (Playlist.Insert), the volume set to 50 (Volume.SetVolume) and the play
+     started (Playlist.SeekId); an AnimatorBatch on the card renders to the
+     halt.  The play is held to phase 20's CPU play at volume 50 (FLAC bit
+     for bit, MP3 <= 1 LSB, HE-AAC <= 2), lpc launches to the FLAC groups,
+     mp3_window launches to the MP3 groups, sbr_env must run and the gain
+     pass run on the card; the counted play's warm wall and decoded s per
+     wall s are printed.  (b) Songcast: a sender MediaPlayer on the card at
+     unity plays the CD FLAC and the MP3 track into an
+     AnimatorSongcastSender(device="cuda", realtime=True) over a unicast
+     OhmSender on 127.0.0.1, paced at its audio clock (OhmRecorder: the
+     animator would send each 1.5 s FLAC group in one burst); a receiver
+     MediaPlayer on the card at volume 50, its SourceReceiver joined to that
+     sender, renders through AnimatorBasic(device="cuda", 5 ms quanta).  The
+     sent audio (silence frames dropped) equals the encoder input for the
+     FLAC track and phase 20's unity MP3 play within 1 LSB; every frame the
+     receiver's OhmReceiver delivers equals the sent frame with its
+     sample_start; at least 95% of the sent audio frames arrive; the
+     receiver's non-zero rendered samples are at least 90% of the sent
+     audio's and its rms over the audio delivered within 1% of its gain; its
+     gain tiles run on the card.  Both animators' late quanta, worst
+     lateness and gain tiles (count, mean host wall) are printed, and the
+     host wall of the receiver's largest tile through a RenderBatcher
+     alone.  (c) The
+     player entry point: python -m ohpipeline_tpu_torch.tools.player on the
+     first 16 frames of the CD stream (one CodecFlac group: a play of several
+     groups starves its free-running render at a group boundary when the
+     next group takes longer than the starvation ramper's 50 ms wait, as the
+     JAX player's does, so its WAV depends on timing), once on the card and
+     once with --cpu: both exit 0 and write the same WAV bytes, the track.
+     (d) The LPC, MP3 window and SBR envelope kernels against their plain
+     versions on the inputs of their first launch in (a)'s first play, at
      the gates of phases 2, 13 and 8, and timed.
 
 A kernel's time is the mean of 20 launches captured in one CUDA graph
@@ -206,8 +242,10 @@ of the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32 outside the
 tensor cores), the published peaks of an H100 SXM at 700 W, from this run's
 inputs, whether the plays of the render path that phases 17-18 count
-launched it and how often (on_render_path, render_launches), and how often
-phase 20's counted playlist play launched it (media_player_launches).  No
+launched it and how often (on_render_path, render_launches), how often
+phase 20's counted playlist play launched it (media_player_launches), and
+phase 21 (a)'s counted play through the ODP control plane (net_launches).
+No
 single
 PyTorch call computes the recurrences of the LPC,
 rice, TNS, SBR-envelope, CELT-comb and PS kernels, so their library_ms
@@ -1700,17 +1738,20 @@ class TrackIds:
         self.ids.append(track.id)
 
 
-def media_player(device, volume: int = 100):
+def media_player(device, volume: int = 100, setup=None):
     """The port's MediaPlayer on ``device`` with the JAX end-to-end tests'
     pipeline params (:func:`render_params`), started (the Playlist source is
     current), Volume.Limit 100 and the volume at ``volume``: 100 is unity
-    gain, so the render chain's gain pass has nothing to do."""
+    gain, so the render chain's gain pass has nothing to do.  ``setup``
+    (player) is called before the start (to add a source)."""
     from ohpipeline_tpu_torch import av, pipeline
 
     player = av.MediaPlayer(av.MediaPlayerInitParams(
         pipeline_params=render_params(pipeline.PipelineInitParams())),
         device=device)
     try:
+        if setup is not None:
+            setup(player)
         player.start()
         player.config.get("Volume.Limit").set(100)
         player.volumes.set_volume(volume)
@@ -2284,7 +2325,9 @@ def radio_uri(path: str):
 def media_player_phase(tracks, streams, mstreams, device="cuda") -> tuple:
     """Phase 20: the Av layer's MediaPlayer on ``device`` (see the module
     docstring).  Returns ({kernel: (args, result) of its first launch in
-    the first play}, the kernels' launches in the counted play)."""
+    the first play}, the kernels' launches in the counted play, the unity
+    play and the CPU's play at volume 50: {track name: (stream info,
+    PCM)})."""
     import torch
     from ohpipeline_tpu_torch import _kernels
     from ohpipeline_tpu_torch._host import mp3_bitstream
@@ -2400,6 +2443,537 @@ def media_player_phase(tracks, streams, mstreams, device="cuda") -> tuple:
               f"tiles through the gain pass)")
     print(f"phase 20: the plays took {time.perf_counter() - t_phase:.1f} s, "
           f"{t_cpu:.1f} s of it the CPU play")
+    return seen, launches, unity, cpu
+
+
+#: phase 21 (b): how far ahead of its audio clock a paced OHM sender sends
+OHM_LEAD_S = 0.05
+#: phase 21 (b): seconds the sender sends silence after its halt, and the
+#: receiver renders on after that: the receiver's pipeline decodes its raw
+#: PCM in blocks of 16384 samples (0.37 s), so the last block of audio
+#: leaves it only when the silence after it fills the block
+RX_TAIL_S = 0.6
+#: phase 21 (c): frames of phase 0's first CD stream the player plays: one
+#: CodecFlac group (see player_cli)
+PLAYER_FRAMES = 16
+#: phase 21 (b): the gates on the receiver's output against the sent audio
+RX_ARRIVED_MIN = 0.95          # sent audio frames the receiver delivers
+RX_RENDERED_MIN = 0.90         # non-zero rendered columns / sent ones
+RX_RMS_TOL = 0.01              # |rms ratio / gain - 1|
+
+
+class OhmRecorder:
+    """An OHM sender for AnimatorSongcastSender that keeps what it is sent:
+    each frame's (sample_start, samples, halt flag, the samples or None
+    where they are all zero).  It forwards each frame to ``ohm`` (an
+    OhmSender) when given one.  With ``paced`` it holds each frame until
+    its audio clock (started at the first frame) is within OHM_LEAD_S of the
+    frame's sample_start, as a sender clocked by its audio would: the
+    animator pulls a whole decoded event a quantum (a 16-frame FLAC group is
+    1.5 s) and would otherwise send it in one burst, more than a loopback
+    receiver's socket holds."""
+
+    def __init__(self, ohm=None, paced: bool = False):
+        self.ohm = ohm
+        self.paced = paced
+        self.frames = []
+        self.halt_after_audio = False
+        self._audio_seen = False
+        self._t0 = None
+
+    def send_audio(self, samples, sample_rate, bit_depth, sample_start=0,
+                   samples_total=0, halt=False):
+        if self.paced:
+            now = time.monotonic()
+            if self._t0 is None:
+                self._t0 = now - sample_start / sample_rate
+            wait = self._t0 + sample_start / sample_rate - OHM_LEAD_S - now
+            if wait > 0:
+                time.sleep(wait)
+        audio = np.array(samples) if samples.any() else None
+        self._audio_seen = self._audio_seen or audio is not None
+        self.halt_after_audio = self.halt_after_audio or (
+            halt and self._audio_seen)
+        self.frames.append((sample_start, samples.shape[1], halt, audio))
+        if self.ohm is None:
+            return 0
+        return self.ohm.send_audio(samples, sample_rate, bit_depth,
+                                   sample_start=sample_start,
+                                   samples_total=samples_total, halt=halt)
+
+    def audio(self) -> np.ndarray:
+        """The sent audio: the frames that are not all zero, in order."""
+        got = [f[3] for f in self.frames if f[3] is not None]
+        return (np.concatenate(got, axis=1) if got
+                else np.zeros((2, 0), np.int32))
+
+    def positions_run_on(self) -> bool:
+        """Whether each frame's sample_start is where the frame before it
+        ended, so the positions rise monotonically."""
+        pos = np.array([f[0] for f in self.frames], np.int64)
+        n = np.array([f[1] for f in self.frames], np.int64)
+        return len(pos) > 1 and bool((pos[1:] == pos[:-1] + n[:-1]).all())
+
+
+def drop_silent_chunks(pcm: np.ndarray) -> np.ndarray:
+    """``pcm`` cut into OHM frames (AnimatorSongcastSender.FRAME_SAMPLES)
+    from its start, the all-zero frames dropped: what an OhmRecorder keeps
+    of a track whose decoded events are whole frames (but the last)."""
+    from ohpipeline_tpu_torch.pipeline import AnimatorSongcastSender
+
+    n = AnimatorSongcastSender.FRAME_SAMPLES
+    chunks = [pcm[:, i:i + n] for i in range(0, pcm.shape[1], n)]
+    kept = [c for c in chunks if c.any()]
+    return (np.concatenate(kept, axis=1) if kept
+            else np.zeros((pcm.shape[0], 0), pcm.dtype))
+
+
+def songcast_send(player, start, ohm, realtime: bool, animator=None,
+                  tail_s: float = 0.0) -> tuple:
+    """Calls start(player) and renders the player's pipeline through an
+    AnimatorSongcastSender on the player's device into ``ohm`` (an
+    OhmRecorder) until the sender has sent a halted frame after its audio
+    and ``tail_s`` seconds more (of the Silencer's silence), then quits the
+    player.  ``animator(upstream, ohm)`` builds another sender (the JAX
+    package's).  Returns (the animator, start's result, wall seconds);
+    raises if the sender failed or did not end."""
+    from ohpipeline_tpu_torch import pipeline
+
+    upstream = player.pipeline.pipeline.predriver
+    anim = None
+    t0 = time.perf_counter()
+    try:
+        anim = (animator(upstream, ohm) if animator else
+                pipeline.AnimatorSongcastSender(upstream, ohm,
+                                                device=player.device,
+                                                realtime=realtime))
+        started = start(player)
+        anim.start()
+        while not ohm.halt_after_audio and anim._thread.is_alive() \
+                and time.perf_counter() - t0 < 120.0:
+            time.sleep(0.01)
+        time.sleep(tail_s)
+    finally:
+        if anim is not None:
+            anim.quit()
+        player.quit()
+        if anim is not None:
+            anim.join(10.0)
+    wall = time.perf_counter() - t0
+    if anim._thread.is_alive() or not ohm.halt_after_audio:
+        raise AssertionError(f"the Songcast sender did not reach the halt "
+                             f"after its audio in {wall:.1f} s")
+    return anim, started, wall
+
+
+def receiver_player(device, volume: int, sender_endpoint=None) -> tuple:
+    """:func:`media_player` with a unicast Songcast SourceReceiver added
+    (joining ``sender_endpoint`` when given).  Returns (player, source)."""
+    from ohpipeline_tpu_torch.host.av.receiver_sources import SourceReceiver
+
+    sources = []
+
+    def add(player):
+        sources.append(SourceReceiver(player.pipeline, multicast=False,
+                                      sender_endpoint=sender_endpoint))
+        player.add_source(sources[0])
+
+    return media_player(device, volume, add), sources[0]
+
+
+def receiver_push(player, src, frames, ohm_audio, animator=None):
+    """Selects the player's SourceReceiver ``src`` (pointed at a sender)
+    and hands it ``frames`` ((sample_start, (channels, n) int32 samples) at
+    44.1 kHz / 16 bits) as its OhmReceiver would, each with an
+    ``ohm_audio`` message (the OhmAudio class of the player's package);
+    once its protocol has taken them all, pushes a halt.  An AnimatorBatch
+    on the player's device (``animator(upstream, sink)`` builds another)
+    renders alongside, on a thread, to the pipeline's halt.  Quits the
+    player; returns the sink."""
+    import threading
+
+    from ohpipeline_tpu_torch import pipeline
+
+    sink = Sink()
+    upstream = player.pipeline.pipeline.predriver
+    errors = []
+
+    def render():
+        try:
+            (animator(upstream, sink) if animator else pipeline.AnimatorBatch(
+                upstream, sink, device=player.device)).run()
+        except BaseException as e:                     # noqa: BLE001
+            errors.append(e)
+
+    thread = threading.Thread(target=render, daemon=True)
+    try:
+        src.set_sender("ohm://127.0.0.1:9")
+        player.product.set_source_by_name("Receiver")
+        thread.start()
+        for i, (start, samples) in enumerate(frames):
+            src._on_audio(samples, ohm_audio(
+                frame=i + 1, sample_start=start, samples_total=0,
+                sample_rate=44100, bit_depth=16, channels=samples.shape[0],
+                payload=b"", media_latency=150 * 44100 * 256 // 1000))
+        deadline = time.monotonic() + 60.0
+        while src.protocol._buffer and time.monotonic() < deadline:
+            time.sleep(0.01)
+        src.protocol.push_halt()
+        thread.join(60.0)
+    finally:
+        src.deactivate()
+        player.quit()
+        thread.join(10.0)
+    if errors:
+        raise errors[0]
+    if thread.is_alive():
+        raise AssertionError("the receiver's animator did not reach the halt")
+    return sink
+
+
+def timed_gain_tiles(batcher) -> list:
+    """Wraps ``batcher``'s render to keep the wall seconds of each call that
+    ran the gain pass (the tile to the device, apply_gain, the copy back);
+    returns the list it fills."""
+    times = []
+    render = batcher.render
+
+    def timed(events):
+        n, t0 = batcher.gain_tiles, time.perf_counter()
+        out = render(events)
+        if batcher.gain_tiles > n:
+            times.append(time.perf_counter() - t0)
+        return out
+
+    batcher.render = timed
+    return times
+
+
+def songcast_loopback(paths, device, volume: int = 50) -> dict:
+    """Phase 21 (b): a sender MediaPlayer on ``device`` at unity gain plays
+    ``paths`` through its Playlist source into an AnimatorSongcastSender
+    (realtime) over a unicast OhmSender on 127.0.0.1, paced at its audio
+    clock (OhmRecorder); a receiver MediaPlayer on ``device`` at ``volume``,
+    its SourceReceiver joined to that sender, renders through a realtime
+    AnimatorBasic (5 ms quanta); the sender sends RX_TAIL_S of silence after
+    its halt and the receiver renders RX_TAIL_S more.
+    Returns {"sent": the OhmRecorder, "delivered": [(sample_start, samples)
+    of each frame the receiver's OhmReceiver delivered], "rendered": the
+    receiver's Sink, "tx" / "rx": the animators, "tiles": the receiver's
+    gain tiles' wall seconds, "gain": its gain (attenuation / 2^14), "wall":
+    the sender's wall}."""
+    from ohpipeline_tpu_torch import pipeline
+    from ohpipeline_tpu_torch.host.net.songcast import OhmSender
+
+    ohm = OhmSender(multicast=False)
+    ohm.start()
+    sent = OhmRecorder(ohm, paced=True)
+    delivered, rendered = [], Sink()
+    rx = rx_anim = None
+    try:
+        endpoint = ("127.0.0.1", ohm.endpoint[1])
+        rx, src = receiver_player(device, volume, endpoint)
+        on_audio = src._on_audio
+
+        def record(samples, msg):
+            delivered.append((msg.sample_start, samples))
+            on_audio(samples, msg)
+
+        src._on_audio = record
+        src.set_sender(f"ohm://{endpoint[0]}:{endpoint[1]}")
+        rx.product.set_source_by_name("Receiver")
+        deadline = time.monotonic() + 5.0
+        while not ohm._listeners and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if not ohm._listeners:
+            raise AssertionError("the receiver did not join the sender")
+        rx_anim = pipeline.AnimatorBasic(rx.pipeline.pipeline.predriver,
+                                         rendered, quantum_ms=5,
+                                         device=device, realtime=True)
+        tiles = timed_gain_tiles(rx_anim.batcher)
+        rx_anim.start()
+        tx_anim, _, wall = songcast_send(media_player(device),
+                                         playlist(paths), sent,
+                                         realtime=True, tail_s=RX_TAIL_S)
+        time.sleep(RX_TAIL_S)
+        gain = rx.pipeline.pipeline.attenuator.attenuation / (1 << 14)
+    finally:
+        if rx_anim is not None:
+            rx_anim.quit()
+        if rx is not None:
+            src.deactivate()
+            rx.quit()
+        if rx_anim is not None:
+            rx_anim.join(10.0)
+        ohm.stop()
+    if rx_anim.is_alive():
+        raise AssertionError("the receiver's animator did not end")
+    return {"sent": sent, "delivered": delivered, "rendered": rendered,
+            "tx": tx_anim, "rx": rx_anim, "tiles": tiles, "gain": gain,
+            "wall": wall}
+
+
+def loopback_gates(lb: dict) -> dict:
+    """Phase 21 (b)'s gates on a :func:`songcast_loopback`: every frame the
+    receiver delivered equals the sent frame with its sample_start, bit for
+    bit; at least RX_ARRIVED_MIN of the sent audio frames arrived; the
+    receiver's non-zero rendered columns are at least RX_RENDERED_MIN of
+    the sent audio's, and its rms over the audio it was delivered within
+    RX_RMS_TOL of the receiver's gain (both counted over all their samples,
+    so the silence the receiver adds, and the sent audio lost on the way,
+    weigh nothing); the sender's positions run on.  Raises on a
+    failed gate; returns the measures."""
+    sent = {f[0]: f for f in lb["sent"].frames}
+    for start, samples in lb["delivered"]:
+        f = sent.get(start)
+        want = (None if f is None else f[3] if f[3] is not None
+                else np.zeros((samples.shape[0], f[1]), np.int32))
+        if want is None or not np.array_equal(samples, want):
+            raise AssertionError(f"phase 21 songcast: the frame delivered at "
+                                 f"sample {start} is not the frame sent")
+    got = {start for start, _ in lb["delivered"]}
+    audio_starts = [f[0] for f in lb["sent"].frames if f[3] is not None]
+    arrived = sum(s in got for s in audio_starts) / max(len(audio_starts), 1)
+    audio = lb["sent"].audio()
+    heard = [s for _, s in lb["delivered"] if s.any()]
+    heard = np.concatenate(heard, axis=1) if heard else audio[:, :0]
+    pcm = lb["rendered"].pcm
+    rendered = (int(pcm.any(axis=0).sum())
+                / max(int(audio.any(axis=0).sum()), 1))
+
+    def energy(x):
+        return float((x.astype(np.float64) ** 2).sum())
+
+    # rms over the same count of samples: silence adds nothing to either
+    ratio = float(np.sqrt(energy(pcm) / max(energy(heard), 1.0)))
+    out = {"frames_sent": len(lb["sent"].frames),
+           "audio_frames": len(audio_starts),
+           "delivered": len(lb["delivered"]), "arrived": arrived,
+           "rendered": rendered, "rms_ratio": ratio, "gain": lb["gain"]}
+    if not lb["sent"].positions_run_on() or arrived < RX_ARRIVED_MIN \
+            or rendered < RX_RENDERED_MIN \
+            or abs(ratio / lb["gain"] - 1) > RX_RMS_TOL:
+        raise AssertionError(f"phase 21 songcast gates: {out}")
+    return out
+
+
+#: phase 21 (b): renders of the receiver's largest tile alone
+TILE_REPS = 20
+
+
+def gain_tile_alone(lb: dict, device) -> dict:
+    """The host wall of the receiver's gain pass on its largest tile alone:
+    one event of that many samples of the sent audio at the receiver's
+    attenuation, through a fresh RenderBatcher on ``device``, TILE_REPS
+    times (after one warm-up), with no other player in the process
+    running."""
+    from ohpipeline_tpu_torch.host.core import events as ev
+    from ohpipeline_tpu_torch.host.core.streaminfo import PcmStreamInfo
+    from ohpipeline_tpu_torch.pipeline import RenderBatcher
+
+    n = max(c.shape[1] for c in lb["rendered"].chunks)
+    event = ev.AudioPcmEvent(
+        np.ascontiguousarray(lb["sent"].audio()[:, :n]),
+        PcmStreamInfo(sample_rate=44100, bit_depth=16, num_channels=2),
+        attenuation=int(round(lb["gain"] * (1 << 14))))
+    batcher = RenderBatcher(device)
+    times = timed_gain_tiles(batcher)
+    for _ in range(TILE_REPS + 1):
+        batcher.render([event])
+    ms = 1e3 * np.array(times[1:])
+    return {"samples": n, "mean_ms": float(ms.mean()),
+            "median_ms": float(np.median(ms))}
+
+
+def odp_play(device, paths, volume: int = 50) -> tuple:
+    """Phase 21 (a): a MediaPlayer on ``device`` (:func:`media_player`, at
+    unity) driven only through its ODP control plane: an OdpServer with
+    make_device(player) on 127.0.0.1 and an OdpClient insert ``paths`` with
+    Playlist.Insert, set Volume.SetVolume ``volume`` and press
+    Playlist.SeekId on the first; :func:`player_run` renders to the halt.
+    Returns player_run's result."""
+    from ohpipeline_tpu_torch.host.net.odp import OdpClient, OdpServer
+    from ohpipeline_tpu_torch.host.net.providers import make_device
+
+    player = media_player(device)
+    server = client = None
+    try:
+        server = OdpServer(host="127.0.0.1")
+        server.add_device(make_device(player))
+        client = OdpClient("127.0.0.1", server.port)
+    except BaseException:
+        if server is not None:
+            server.close()
+        player.quit()
+        raise
+
+    def start(player) -> list:
+        ids, after = [], 0
+        for path in paths:
+            after = client.invoke("Playlist", "Insert", afterId=after,
+                                  uri=f"file://{path}",
+                                  metadata="")["newId"]
+            ids.append(after)
+        client.invoke("Volume", "SetVolume", value=volume)
+        client.invoke("Playlist", "SeekId", value=ids[0])
+        return ids
+
+    try:
+        return player_run(player, start)
+    finally:
+        client.close()
+        server.close()
+
+
+def player_cli(uri: str, wav: str, *flags) -> str:
+    """Runs ``python -m ohpipeline_tpu_torch.tools.player --uri uri --wav
+    wav *flags`` from the repository root; returns its output, raising on a
+    non-zero exit."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "ohpipeline_tpu_torch.tools.player", "--uri",
+         uri, "--wav", wav, *flags], cwd=HERE, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the player {' '.join(flags)} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+#: phase 21 (a)'s playlist: phase 20's CD FLAC, MP3 and HE-AAC tracks
+NET_TRACKS = ("cd", "mp3", "he")
+
+
+def net_phase(tracks, streams, mstreams, unity, cpu, device="cuda") -> tuple:
+    """Phase 21: the net layer on ``device`` (see the module docstring).
+    ``unity`` and ``cpu`` are phase 20's plays at unity on the card and at
+    volume 50 on the CPU ({track name: (stream info, PCM)}).  Returns
+    ({kernel: (args, result) of its first launch in (a)'s first play}, the
+    kernels' launches in (a)'s counted play)."""
+    import torch
+    from ohpipeline_tpu_torch import _host, _kernels
+    from ohpipeline_tpu_torch.codecs import flac as flac_codec
+    from ohpipeline_tpu_torch.codecs import mp3 as mp3_codec
+    from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
+    from ohpipeline_tpu_torch.codecs.mp3 import synthesis as msyn
+    from ohpipeline_tpu_torch.host.codecs.wav import parse_wav
+    from ohpipeline_tpu_torch.ops import lpc as lpc_ops
+    from ohpipeline_tpu_torch.ops import pcm as pcm_ops
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        files = dict(zip(PLAYER_GATES, player_files(tmp, streams, mstreams)))
+        paths = [files[name] for name in NET_TRACKS]
+        # (a) the control plane: a first play, then the counted one
+        first, seen = first_calls_of(
+            [(lpc_ops, "lpc_synthesize"), (msyn, "mp3_window"),
+             (sbrd, "envelope_scan")], lambda: odp_play(device, paths))
+        _kernels.reset_launches()
+        ((run, mp3_n), flac_n), gain_n = count_calls(
+            pcm_ops, "apply_gain", lambda: count_calls(
+                flac_codec, "synthesise_batch", lambda: count_calls(
+                    mp3_codec, "decode_frames_lazy",
+                    lambda: odp_play(device, paths))))
+        launches = dict(_kernels.launches)
+        sink, wall, batcher, track_ids, ids = run[:5]
+        parts = stream_pcm(sink)
+        codecs = [i.codec_name for i, _ in parts]
+        if codecs != ["FLAC", "MP3", "HE-AAC"] or track_ids != ids:
+            raise AssertionError(f"phase 21 odp: streams {codecs}, tracks "
+                                 f"{track_ids} for playlist ids {ids}")
+        errs = []
+        for name, (info, got) in zip(NET_TRACKS, parts):
+            want = cpu[name][1]
+            if got.shape != want.shape:
+                raise AssertionError(f"phase 21 odp {name}: {got.shape} != "
+                                     f"phase 20's cpu {want.shape}")
+            lsb = int(np.abs(got.astype(np.int64) - want).max())
+            if lsb > PLAYER_GATES[name]:
+                raise AssertionError(f"phase 21 odp {name}: {lsb} LSB from "
+                                     f"phase 20's cpu play")
+            errs.append(f"{name} <= {lsb}")
+        if launches["lpc"] != flac_n or flac_n == 0 \
+                or launches["mp3_window"] != mp3_n or mp3_n == 0 \
+                or launches["sbr_env"] <= 0:
+            raise AssertionError(f"phase 21 odp: launches {launches} for "
+                                 f"{flac_n} FLAC and {mp3_n} MP3 groups")
+        if batcher.device != torch.device(device) or gain_n == 0 \
+                or batcher.gain_tiles != gain_n:
+            raise AssertionError(f"phase 21 odp: the gain pass ran {gain_n} "
+                                 f"times on {batcher.device}")
+        decoded_s = sum(p.shape[1] / i.sample_rate for i, p in parts)
+        print(f"phase 21 (a): OdpClient -> OdpServer -> MediaPlayer(device="
+              f"{device!r}): Playlist.Insert x3, Volume.SetVolume 50, "
+              f"Playlist.SeekId; vs phase 20's cpu play in LSB: "
+              f"{'; '.join(errs)} (first play {first[1]:.3f} s)")
+        print(f"phase 21 (a): counted play: warm wall {wall:.3f} s for "
+              f"{decoded_s:.2f} s of audio, {decoded_s / wall:.1f} decoded s "
+              f"per wall s; {flac_n} FLAC groups, {mp3_n} MP3 groups, "
+              f"launches {launches}; the gain pass ran {gain_n} times on "
+              f"{batcher.device}")
+        # (b) Songcast: sender and receiver players on the card
+        lb = songcast_loopback([files["cd"], files["mp3"]], device)
+        audio = lb["sent"].audio()
+        n_cd = tracks[0].shape[1]
+        mp3_ref = drop_silent_chunks(unity["mp3"][1])
+        if not np.array_equal(audio[:, :n_cd], tracks[0]):
+            raise AssertionError("phase 21 songcast: the sent FLAC audio != "
+                                 "the encoder input")
+        if audio[:, n_cd:].shape != mp3_ref.shape:
+            raise AssertionError(f"phase 21 songcast: sent MP3 audio "
+                                 f"{audio[:, n_cd:].shape}, phase 20's "
+                                 f"{mp3_ref.shape}")
+        mp3_lsb = int(np.abs(audio[:, n_cd:].astype(np.int64)
+                             - mp3_ref).max())
+        if mp3_lsb > PLAYER_GATES["mp3"]:
+            raise AssertionError(f"phase 21 songcast: sent MP3 {mp3_lsb} "
+                                 f"LSB from phase 20's")
+        g = loopback_gates(lb)
+        if lb["rx"].batcher.device != torch.device(device) or not lb["tiles"]:
+            raise AssertionError("phase 21 songcast: the receiver's gain "
+                                 "pass did not run on the card")
+        print(f"phase 21 (b): Songcast sender MediaPlayer(device={device!r}) "
+              f"-> AnimatorSongcastSender -> OhmSender (unicast, paced) -> "
+              f"receiver MediaPlayer's SourceReceiver: sent {audio.shape[1]} "
+              f"audio samples (FLAC == encoder input, MP3 <= {mp3_lsb} LSB "
+              f"of phase 20's) in {g['audio_frames']} audio frames of "
+              f"{g['frames_sent']}; {g['delivered']} frames delivered, each "
+              f"== the frame sent; {g['arrived']:.4f} of the audio frames "
+              f"arrived; rendered non-zero {g['rendered']:.4f} of the sent "
+              f"audio, rms ratio {g['rms_ratio']:.6g} for gain "
+              f"{g['gain']:.6g}; sender wall {lb['wall']:.2f} s")
+        for who in ("tx", "rx"):
+            anim = lb[who]
+            tiles = lb["tiles"] if who == "rx" else []
+            mean_ms = 1e3 * float(np.mean(tiles)) if tiles else 0.0
+            print(f"phase 21 (b): {who} animator: late_quanta "
+                  f"{anim.late_quanta}, worst_late_s {anim.worst_late_s:.4f}, "
+                  f"gain tiles {anim.batcher.gain_tiles} (mean "
+                  f"{mean_ms:.3f} ms, host wall with both copies)")
+        alone = gain_tile_alone(lb, device)
+        print(f"phase 21 (b): the receiver's largest tile "
+              f"({alone['samples']} samples) alone through a RenderBatcher "
+              f"on {device}, {TILE_REPS} times: mean {alone['mean_ms']:.3f} "
+              f"ms, median {alone['median_ms']:.3f} ms")
+        # (c) the player entry point, on the card and with --cpu
+        cut = os.path.join(tmp, "cut.flac")
+        track = tracks[0][:, :PLAYER_FRAMES * 4096]
+        with open(cut, "wb") as f:
+            f.write(_host.encode_flac(track, 44100, 16))
+        wavs, t_cli = {}, time.perf_counter()
+        for flags in ((), ("--cpu",)):
+            out = os.path.join(tmp, f"player{len(flags)}.wav")
+            player_cli(f"file://{cut}", out, *flags)
+            with open(out, "rb") as f:
+                wavs[flags] = f.read()
+        _, pcm = parse_wav(wavs[()])
+        if wavs[()] != wavs[("--cpu",)] or not np.array_equal(pcm, track):
+            raise AssertionError("phase 21 player: the card's and the CPU's "
+                                 "WAVs differ, or differ from the track")
+        print(f"phase 21 (c): python -m ohpipeline_tpu_torch.tools.player "
+              f"--uri file://<{PLAYER_FRAMES} CD frames> --wav: the card's "
+              f"WAV == the --cpu WAV ({len(wavs[()])} bytes) == the track; "
+              f"both runs {time.perf_counter() - t_cli:.1f} s")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
     return seen, launches
 
 
@@ -3206,7 +3780,8 @@ def main() -> None:
     check_precision()
 
     # --- phase 20: the Av layer's MediaPlayer on the card -----------------
-    seen, player_launches = media_player_phase(tracks, streams, mstreams)
+    seen, player_launches, unity, cpu = media_player_phase(tracks, streams,
+                                                           mstreams)
     lpc_err = max(lpc_err, check_lpc("media player group 0",
                                      list(seen["lpc_synthesize"][0]),
                                      phase=20)[0])
@@ -3218,16 +3793,31 @@ def main() -> None:
                                          phase=20)[0])
     check_precision()
 
+    # --- phase 21: the net layer on the card -------------------------------
+    seen, net_launches = net_phase(tracks, streams, mstreams, unity, cpu)
+    lpc_err = max(lpc_err, check_lpc("net play group 0",
+                                     list(seen["lpc_synthesize"][0]),
+                                     phase=21)[0])
+    win_err = max(win_err, check_mp3_window("net play group 0",
+                                            *seen["mp3_window"][0],
+                                            phase=21)[0])
+    sbr_err = max(sbr_err, check_sbr_env("net play group 0",
+                                         seen["envelope_scan"][0],
+                                         phase=21)[0])
+    check_precision()
+
     def bounds(b, library_ms=None):
         return {"bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
 
     def flag(name):
         """Whether the render path's counted plays (phase 17's warm FLAC
         and ADTS plays, phase 18's warm plays) launched the kernel, and how
-        often; and how often phase 20's counted playlist play did."""
+        often; how often phase 20's counted playlist play did, and phase
+        21 (a)'s counted play through the ODP control plane."""
         return {"on_render_path": on_path[name] > 0,
                 "render_launches": on_path[name],
-                "media_player_launches": player_launches[name]}
+                "media_player_launches": player_launches[name],
+                "net_launches": net_launches[name]}
 
     kernels = [
         {"name": "lpc", "route": "cuda",
@@ -3273,7 +3863,7 @@ def main() -> None:
          "ms": psm_ms, "plain_ms": psm_plain_ms, **bounds(psm_bound),
          **flag("ps_mix")},
     ]
-    print(f"phases 0-20 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 0-21 in {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,8 @@ from ..host.pipeline import manager as _manager
 from ..host.pipeline.manager import (DecodeFaultEvent, Pipeline,
                                      PipelineInitParams, PipelineState,
                                      SupportElements)
-from .animator import AnimatorBasic, AnimatorBatch, RenderBatcher, Silencer
+from .animator import (AnimatorBasic, AnimatorBatch, AnimatorSongcastSender,
+                       RenderBatcher, Silencer)
 
 
 class PipelineManager(_manager.PipelineManager):
@@ -44,6 +45,7 @@ class PipelineManager(_manager.PipelineManager):
                          protocol_manager_factory)
 
 
-__all__ = ["AnimatorBasic", "AnimatorBatch", "DecodeFaultEvent",
+__all__ = ["AnimatorBasic", "AnimatorBatch", "AnimatorSongcastSender",
+           "DecodeFaultEvent",
            "Pipeline", "PipelineInitParams", "PipelineManager",
            "PipelineState", "RenderBatcher", "Silencer", "SupportElements"]

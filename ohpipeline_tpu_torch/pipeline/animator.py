@@ -9,8 +9,8 @@ no device work.  The animators take a ``device`` where the JAX ones take
 ``use_device``; the CPU route is ``device="cpu"``.  ``AnimatorBasic`` also
 counts its late quanta.  A :class:`DecodeFaultEvent` (the pump thread's
 end after a device fault) is raised in the caller of ``AnimatorBatch.run``
-or ``AnimatorBasic.join``.  ``AnimatorSongcastSender`` is not ported: it
-needs the Songcast sender of the net layer.
+or ``AnimatorBasic.join``.  ``AnimatorSongcastSender`` renders into a
+Songcast sender of the net layer (``host/net/songcast.py``).
 """
 
 from __future__ import annotations
@@ -269,3 +269,36 @@ class Silencer:
                     self._quit = True
                 return e
             return ev.SilenceEvent(self._silence, self._info)
+
+
+class AnimatorSongcastSender(AnimatorBasic):
+    """Headless animator rendering the pipeline INTO a Songcast sender
+    (Av/Utils/DriverSongcastSender.cpp): pulls 5 ms quanta through a
+    Silencer — receivers stay locked across halts because silence keeps
+    flowing — and sends every rendered quantum as OHM audio frames with
+    running sample positions.  Its gain pass runs on ``device``; a fault
+    of the pipeline reaches the caller of ``join``."""
+
+    def __init__(self, pipeline, ohm_sender, quantum_ms: int = 5,
+                 device="cuda", realtime: bool = True):
+        # the device first: a refused device starts no Silencer thread
+        device = _kernels.checked_device(device)
+        self.silencer = Silencer(pipeline)
+        self._ohm = ohm_sender
+        self._sample_pos = 0
+        super().__init__(self.silencer, self._send, quantum_ms=quantum_ms,
+                         device=device, realtime=realtime)
+
+    #: samples per OHM frame — the reference sends 5 ms packets
+    #: (Sender.h kSongcastPacketJiffies); also keeps each frame's payload
+    #: under the OHM header's 16-bit byte count
+    FRAME_SAMPLES = 1024
+
+    def _send(self, samples: np.ndarray, info) -> None:
+        halted = self.silencer.halted
+        for pos in range(0, samples.shape[1], self.FRAME_SAMPLES):
+            chunk = samples[:, pos:pos + self.FRAME_SAMPLES]
+            self._ohm.send_audio(chunk, info.sample_rate, info.bit_depth,
+                                 sample_start=self._sample_pos,
+                                 halt=halted)
+            self._sample_pos += chunk.shape[1]

@@ -11,13 +11,15 @@ on XLA-CPU), its MP3 track within 1 LSB and its HE-AAC track within 2; the
 pipeline announces the tracks in the database's order.  The Radio source's
 ``play_uri`` and ``play_preset``, a mute through the volume chain and
 standby do what they do in the JAX package.  A kernel fault during a play
-reaches the animator's caller.  The parts of the player that need the net
-layer raise ``ModuleNotFoundError`` until it is ported.  Every animator run
+reaches the animator's caller.  The parts of the player and of its receiver
+sources that reach the net layer do what the JAX package's do.  Every animator run
 goes through :func:`watchdog`, so a hang fails the test."""
 
 import os
+import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -28,7 +30,6 @@ from ohpipeline_tpu_torch import _host, _kernels
 from ohpipeline_tpu_torch import av as tav
 from ohpipeline_tpu_torch.codecs import aac as aac_codec
 from ohpipeline_tpu_torch.codecs.mp3 import synthesis as mp3_synthesis
-from ohpipeline_tpu_torch.host.av import receiver_sources
 from ohpipeline_tpu_torch.host.codecs.aac import bitstream as aac_bitstream
 from ohpipeline_tpu_torch.ops import lpc as lpc_ops
 from ohpipeline_tpu_torch.pipeline import AnimatorBatch
@@ -39,7 +40,6 @@ MP3_FRAMES = 77                      # 2.01 s at 44.1 kHz
 HE_FRAMES = 20                       # frames 0-19: one SBR header period x 2
 #: the port's output against the JAX player's at a non-unity gain, in LSB
 LSB_MAX = {"FLAC": 0, "MP3": 1, "HE-AAC": 2}
-NET = "ohpipeline_tpu_torch.host.net"
 
 
 def he_cut(frames: int) -> bytes:
@@ -224,39 +224,148 @@ def test_a_kernel_fault_during_a_play_reaches_the_animators_caller(
                                                  "he"].index(where)]
 
 
+def upnp_services(device) -> dict:
+    """A published UPnP device's services: {path: (type, id, actions)}."""
+    try:
+        return {path: (svc.service_type, svc.service_id, sorted(svc.actions))
+                for path, svc in device.services.items()}
+    finally:
+        device.close()
+
+
+def shell_info(player) -> str:
+    """start() with a shell port, and the shell's answer to ``info``."""
+    player.start()
+    with socket.create_connection(("127.0.0.1", player.shell.port),
+                                  timeout=10) as conn:
+        f = conn.makefile("rwb")
+        assert f.read(2 + len(b"ohpipeline shell\n")).endswith(b"> ")
+        f.write(b"info\n")
+        f.flush()
+        return f.readline().decode()
+
+
+#: The player's parts that need the net layer: what each gives.
+NET_PARTS = {
+    "add_songcast_sender": lambda p: (      # the channel is random else
+        type(p.add_songcast_sender(default_channel=7)).__name__,
+        {k: p.config.get(k).value for k in p.config.keys()
+         if k.startswith("Sender.")}),
+    "start_upnp": lambda p: upnp_services(p.start_upnp(ssdp=False)),
+    "start_openhome_upnp": lambda p: upnp_services(
+        p.start_openhome_upnp(ssdp=False)),
+    "start_with_shell": shell_info,
+}
+
+
 @pytest.mark.parametrize("call", [
     "add_songcast_sender", "start_upnp", "start_openhome_upnp",
     "start_with_shell"])
 def test_the_players_net_parts_wait_for_the_net_layer(call):
-    params = tav.MediaPlayerInitParams(
-        shell_port=0 if call == "start_with_shell" else None)
-    player = tav.MediaPlayer(params, device="cpu")
+    """The parts of the player that reach the net layer (they raised
+    ModuleNotFoundError until it was ported) give what the JAX player's
+    give: the Songcast sender and its Sender.* config values, the services
+    of the published UPnP devices (ports and UDNs aside) and the debug
+    shell's answer to ``info`` over TCP."""
+    from ohpipeline_tpu import av as jav
+
+    shell = 0 if call == "start_with_shell" else None
+    got = []
+    for av, kw in ((tav, {"device": "cpu"}), (jav, {})):
+        player = av.MediaPlayer(av.MediaPlayerInitParams(shell_port=shell),
+                                **kw)
+        try:
+            got.append(NET_PARTS[call](player))
+        finally:
+            player.quit()
+    assert got[0] and got[0] == got[1], got
+
+
+def wait_for(cond, timeout: float = 5.0) -> bool:
+    deadline = time.monotonic() + timeout
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return cond()
+
+
+def receiver_joins(pkg, mgr, retarget: bool) -> tuple:
+    """A SourceReceiver (unicast) activated against a live OhmSender on
+    127.0.0.1 joins it; with ``retarget``, set_sender then points it at
+    that sender.  Returns what the source and the sender show."""
+    ohm = pkg["songcast"].OhmSender(multicast=False)
+    ohm.start()
+    endpoint = ("127.0.0.1", ohm.endpoint[1])
+    src = pkg["receiver_sources"].SourceReceiver(
+        mgr, multicast=False, sender_endpoint=endpoint)
     try:
-        with pytest.raises(ModuleNotFoundError) as info:
-            if call == "start_with_shell":
-                player.start()
-            else:
-                getattr(player, call)()
-        assert info.value.name.startswith(NET), info.value
+        src.activate()
+        joined = wait_for(lambda: len(ohm._listeners) == 1)
+        out = (src.active, src.playing, joined)
+        if retarget:
+            src.set_sender(f"ohm://127.0.0.1:{endpoint[1]}", "<m/>")
+            out += (src.sender_info()[1], src.uri == src.sender_info()[0],
+                    src.provider._track.uri == src.uri)
+        return out
     finally:
-        player.quit()
+        src.deactivate()
+        ohm.stop()
 
 
-@pytest.mark.parametrize("use", [
-    lambda mgr: receiver_sources.SourceReceiver(mgr).activate(),
-    lambda mgr: receiver_sources.SourceReceiver(mgr).set_sender(),
-    lambda mgr: receiver_sources.SourceScd(mgr).connect("127.0.0.1", 9),
-    lambda mgr: receiver_sources.SourceRaop(mgr).start_endpoint()],
-    ids=["receiver_activate", "receiver_set_sender", "scd_connect",
-         "raop_endpoint"])
+def scd_connects(pkg, mgr) -> tuple:
+    """SourceScd.connect to a live ScdSender on 127.0.0.1."""
+    sender = pkg["scd"].ScdSender()
+    src = pkg["receiver_sources"].SourceScd(mgr)
+    try:
+        src.connect("127.0.0.1", sender.port)
+        return (wait_for(lambda: len(sender._clients) == 1),
+                src.provider._track.uri == f"scd://127.0.0.1:{sender.port}")
+    finally:
+        src.deactivate()
+        sender.close()
+
+
+def raop_listens(pkg, mgr) -> tuple:
+    """SourceRaop.start_endpoint binds an RTSP listener that takes a TCP
+    connection on 127.0.0.1."""
+    src = pkg["receiver_sources"].SourceRaop(mgr)
+    try:
+        port = src.start_endpoint()
+        with socket.create_connection(("127.0.0.1", port), timeout=5):
+            pass
+        return (port > 0, port == src.receiver.rtsp_port)
+    finally:
+        src.deactivate()
+
+
+RECEIVER_USES = {
+    "receiver_activate": lambda pkg, mgr: receiver_joins(pkg, mgr, False),
+    "receiver_set_sender": lambda pkg, mgr: receiver_joins(pkg, mgr, True),
+    "scd_connect": scd_connects,
+    "raop_endpoint": raop_listens,
+}
+
+
+@pytest.mark.parametrize("use", list(RECEIVER_USES))
 def test_the_receiver_sources_wait_for_the_net_layer(use):
-    player = tav.MediaPlayer(device="cpu")
-    try:
-        with pytest.raises(ModuleNotFoundError) as info:
-            use(player.pipeline)
-        assert info.value.name.startswith(NET), info.value
-    finally:
-        player.quit()
+    """The receiver sources' uses of the net layer (they raised
+    ModuleNotFoundError until it was ported) work on loopback as the JAX
+    package's do."""
+    import importlib
+
+    from ohpipeline_tpu import av as jav
+
+    got = []
+    for av, root, kw in ((tav, "ohpipeline_tpu_torch.host", {"device": "cpu"}),
+                         (jav, "ohpipeline_tpu", {})):
+        pkg = {name: importlib.import_module(f"{root}.{where}.{name}")
+               for where, name in (("av", "receiver_sources"),
+                                   ("net", "songcast"), ("net", "scd"))}
+        player = av.MediaPlayer(**kw)
+        try:
+            got.append(RECEIVER_USES[use](pkg, player.pipeline))
+        finally:
+            player.quit()
+    assert all(got[0]) and got[0] == got[1], got
 
 
 def test_the_av_facade_exports_the_jax_names():

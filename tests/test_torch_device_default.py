@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from ohpipeline_tpu_torch import _host, av, parallel
+from ohpipeline_tpu_torch import _host, _kernels, av, parallel, pipeline
 from ohpipeline_tpu_torch.codecs import aac
 from ohpipeline_tpu_torch.codecs.aac import sbr as aac_sbr
 from ohpipeline_tpu_torch.codecs.aac import serving as aac_serving
@@ -21,6 +21,7 @@ from ohpipeline_tpu_torch.codecs.mp3 import serving as mp3_serving
 from ohpipeline_tpu_torch.codecs.opus import celt
 from ohpipeline_tpu_torch.codecs.vorbis import device as vorbis_device
 from ohpipeline_tpu_torch.entry import dryrun_multichip, entry
+from ohpipeline_tpu_torch.tools import player
 
 ASSETS = pathlib.Path(__file__).resolve().parent / "assets"
 
@@ -114,6 +115,9 @@ CLASSES = {
     "SbrPsDeviceRunner": (aac_sbr.SbrPsDeviceRunner,
                           lambda: aac_sbr.SbrPsDeviceRunner(_sbr_decoder())),
     "MediaPlayer": (av.MediaPlayer, lambda: av.MediaPlayer()),
+    "AnimatorSongcastSender": (
+        pipeline.AnimatorSongcastSender,
+        lambda: pipeline.AnimatorSongcastSender(None, None)),
 }
 
 
@@ -130,6 +134,18 @@ def test_without_a_card_a_class_naming_no_device_raises(name):
     _, use = CLASSES[name]
     with pytest.raises((AssertionError, RuntimeError)):
         use()
+
+
+def test_without_a_card_the_player_naming_no_device_raises(tmp_path):
+    """The player entry point takes ``--device`` (default "cuda"); without
+    a card and without ``--cpu`` it raises before it builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = tmp_path / "o.wav"
+    with pytest.raises(_kernels.KernelError):
+        player.main(["--uri", "tone://sine.wav?duration=1", "--wav",
+                     str(out)])
+    assert not out.exists()
 
 
 #: Mesh calls that name no device: they span the visible cards.

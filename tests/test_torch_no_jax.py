@@ -2,9 +2,11 @@
 ADTS codec plug-in), HE-AAC v2 groups (the parametric-stereo runner), CELT,
 MP3 and Vorbis, runs the flagship step, plays FLAC, MP3, M4A, ALAC and
 SILK files through its pipeline, serves FLAC over a mesh (``mesh=``),
-fans a branch out to its devices (``IciBranch``) and plays a tone through
-its MediaPlayer's Playlist source at volume 50 with every import of jax
-and of ohpipeline_tpu failing, in
+fans a branch out to its devices (``IciBranch``), plays a tone through
+its MediaPlayer's Playlist source at volume 50, takes OHM audio from a
+Songcast sender on loopback into a SourceReceiver and writes a tone's WAV
+through its player entry point with every import of jax and of
+ohpipeline_tpu failing, in
 the repository and in a directory that holds only the port, chip_smoke.py and
 the test assets; no module of ohpipeline_tpu is ever loaded; its HE path
 parses every SBR payload natively; its copies of the JAX package's .cc,
@@ -165,6 +167,45 @@ _BLOCKED = textwrap.dedent("""
         b"<opml><body><outline type='audio' URL='http://a/s.mp3'/></body>"
         b"</opml>") == ["http://a/s.mp3"]
     assert services.parse_opml
+    import time
+
+    from ohpipeline_tpu_torch.host.av.receiver_sources import SourceReceiver
+    from ohpipeline_tpu_torch.host.net.songcast import OhmSender
+    from ohpipeline_tpu_torch.pipeline import (AnimatorBatch,
+                                               PipelineInitParams,
+                                               PipelineManager)
+    from ohpipeline_tpu_torch.tools import player as cli
+
+    mgr = PipelineManager(chip_smoke.render_params(PipelineInitParams()),
+                          device="cpu")
+    ohm = OhmSender(multicast=False)
+    ohm.start()
+    src = SourceReceiver(mgr, multicast=False,
+                         sender_endpoint=("127.0.0.1", ohm.endpoint[1]))
+    src.set_sender()
+    src.activate()
+    deadline = time.monotonic() + 5
+    while not ohm._listeners and time.monotonic() < deadline:
+        time.sleep(0.01)
+    for i in range(16):
+        ohm.send_audio(x[:, :1024], 44100, 16, sample_start=1024 * i)
+    deadline = time.monotonic() + 10
+    while src._receiver.stats.frames < 16 or src.protocol._buffer:
+        assert time.monotonic() < deadline, "the OHM audio did not arrive"
+        time.sleep(0.01)
+    src.protocol.push_halt()
+    sink = chip_smoke.Sink()
+    AnimatorBatch(mgr.pipeline.predriver, sink, device="cpu").run()
+    src.deactivate()
+    mgr.quit()
+    ohm.stop()
+    assert sink.pcm.any(axis=0).sum() >= 16 * 1000
+    import os
+
+    with tempfile.TemporaryDirectory() as tmp:
+        assert cli.main(["--cpu", "--uri", "tone://sine.wav?duration=1",
+                         "--wav", tmp + "/o.wav"]) == 0
+        assert os.path.getsize(tmp + "/o.wav") == 44 + 4 * 44100
     loaded = [m for m in sys.modules if m == "ohpipeline_tpu"
               or m.startswith("ohpipeline_tpu.")]
     assert loaded == ["ohpipeline_tpu"], loaded     # the blocking None
@@ -241,13 +282,37 @@ PY_COPIES = (
     "av/ops_support.py", "av/volume.py", "av/sources.py",
     "av/credentials.py", "av/oauth.py", "av/pins.py", "av/podcasts.py",
     "av/reactions.py", "av/sender.py", "av/services.py", "av/raat.py",
-    "av/receiver_sources.py")
+    "av/receiver_sources.py",
+    "net/__init__.py", "net/odp.py", "net/songcast.py", "net/scd.py",
+    "net/ntp.py", "net/mdns.py", "net/artwork.py", "net/shell.py",
+    "net/webapp.py", "net/raop.py", "net/upnp.py", "net/providers.py")
+
+#: The net layer's static web resources, byte copies beside the copy of
+#: webapp.py (it finds them through its own path).
+WEBUI_COPIES = ("net/webui/config/index.html", "net/webui/config/config.js",
+                "net/webui/config/en-gb/ConfigOptions.txt")
 
 
 @pytest.mark.parametrize("rel", PY_COPIES)
 def test_whole_python_copies_are_the_originals(rel):
     copy = PORT / "host" / rel
     assert copy.read_bytes() == (REPO / "ohpipeline_tpu" / rel).read_bytes()
+
+
+@pytest.mark.parametrize("rel", WEBUI_COPIES)
+def test_web_resources_are_the_originals(rel):
+    copy = PORT / "host" / rel
+    assert copy.read_bytes() == (REPO / "ohpipeline_tpu" / rel).read_bytes()
+
+
+def test_the_web_resources_are_all_copied():
+    def tree(root):
+        return sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                      if p.is_file())
+
+    assert tree(REPO / "ohpipeline_tpu" / "net" / "webui") \
+        == tree(PORT / "host" / "net" / "webui") \
+        == sorted(rel[len("net/webui/"):] for rel in WEBUI_COPIES)
 
 
 _JAX_TEXT = re.compile(r"\b(import\s+jax|from\s+jax)\b")
