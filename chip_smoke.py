@@ -232,7 +232,19 @@ Phases, each ending in torch.cuda.synchronize():
      once with --cpu: both exit 0 and write the same WAV bytes, the track.
      (d) The LPC, MP3 window and SBR envelope kernels against their plain
      versions on the inputs of their first launch in (a)'s first play, at
-     the gates of phases 2, 13 and 8, and timed.
+     the gates of phases 2, 13 and 8, and timed;
+ 22. the port's benches (bench_phase), through their functions: the
+     headline ohpipeline_tpu_torch.bench.run at its defaults (16 FLAC
+     streams of make_track and 48 AAC-LC streams tiled from dryrun.aac, 30
+     s each) with 3 timed passes, which folds in the four-codec floor probe
+     (bench_secondary.floor_probe(passes=2): CELT, HE-AAC v1, MP3 and
+     Vorbis, 16 streams of BENCH2_SECONDS each), then
+     bench_secondary.all_codecs_bench(passes=2), the six serving calls at
+     once; each result is printed as a JSON line, with the phase's
+     seconds.  The headline must exit 0 with both halves decoded, every
+     floor-probe value must be above 0, the all-codecs HE-AAC seconds must
+     be counted at the 44.1 kHz output rate, and every kernel but ps_mix
+     (no bench serves HE-AAC v2) must have launched in the phase.
 
 A kernel's time is the mean of 20 launches captured in one CUDA graph
 (kernel_ms: a launch from Python takes longer on the host than a short
@@ -244,7 +256,8 @@ tensor cores), the published peaks of an H100 SXM at 700 W, from this run's
 inputs, whether the plays of the render path that phases 17-18 count
 launched it and how often (on_render_path, render_launches), how often
 phase 20's counted playlist play launched it (media_player_launches), and
-phase 21 (a)'s counted play through the ODP control plane (net_launches).
+phase 21 (a)'s counted play through the ODP control plane (net_launches),
+and phase 22's benches (bench_launches).
 No
 single
 PyTorch call computes the recurrences of the LPC,
@@ -254,8 +267,10 @@ of one grouped conv1d (cuDNN, TF32 off) plus the pair-add, the one PyTorch
 formulation of its FIR.
 
 Float32 matrix products must run in full float32 (no TF32), which is
-PyTorch's default; the script checks that the default holds before and
-after the port runs.  Any failure raises and exits non-zero; so does a
+PyTorch's default: the port's device functions refuse with KernelError
+where TF32 is on (_kernels.require_full_fp32), and the script checks the
+setting before and after the port runs.  Any failure raises and exits
+non-zero; so does a
 machine without a CUDA device, before anything is built.  The last two
 lines printed are the kernels' JSON record and {"ok": true, "device":
 {...}}, after the card's name and power limit.  Imports no JAX.
@@ -264,6 +279,7 @@ lines printed are the kernels' JSON record and {"ok": true, "device":
 from __future__ import annotations
 
 import json
+import math
 import multiprocessing as mp
 import os
 import shutil
@@ -319,6 +335,8 @@ MESH_HE_STREAMS = 5                   # 144-184 frames: 4 groups each
 MESH_MP3_STREAMS = 8                  # 8 s each
 MESH_LOGICAL = ["cuda:0"] * 4         # dp 2, sp 2 on one card
 MESH_REPS = 3                         # alternating timed calls a codec
+BENCH_PASSES = 3                      # phase 22: the headline's timed passes
+BENCH_ALL_PASSES = 2                  # and the all-codecs aggregate's
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM, 700 W
 FP32_OPS_PER_S = 67e12
 
@@ -342,22 +360,11 @@ def fail(msg: str) -> None:
 
 def make_track(seconds: float, rate: int = 44100, seed: int = 7):
     """bench.py's content: tones + noise + transients, per-seed
-    frequencies and envelopes, 16-bit stereo."""
-    rng = np.random.default_rng(seed)
-    n = int(rate * seconds)
-    t = np.arange(n) / rate
-    f1 = 200 + 1800 * rng.random()
-    f2 = 100 + 500 * rng.random()
-    base = (0.6 * np.sin(2 * np.pi * f1 * t)
-            + 0.25 * np.sin(2 * np.pi * f2 * t + rng.random() * 6)
-            + 0.02 * rng.standard_normal(n))
-    env = 0.55 + 0.45 * np.sin(2 * np.pi * (0.1 + 0.3 * rng.random()) * t)
-    base *= env
-    for s in rng.integers(0, max(n - 2000, 1), size=int(seconds * 2)):
-        base[s:s + 800] += 0.5 * np.sign(
-            np.sin(2 * np.pi * 37 * t[:800])) * np.exp(-t[:800] * 400)
-    x = np.stack([base, np.roll(base, int(rng.integers(5, 50)))])
-    return np.clip(np.rint(x * 20000), -32768, 32767).astype(np.int32)
+    frequencies and envelopes, 16-bit stereo (the port's headline bench's
+    copy, ohpipeline_tpu_torch.bench.make_track)."""
+    from ohpipeline_tpu_torch.bench import make_track as track
+
+    return track(seconds, rate, seed)
 
 
 def encode_job(job: tuple) -> tuple:
@@ -1107,18 +1114,11 @@ def check_celt_comb(name, args, win2):
 def mp3_bench_stream(i: int, seconds: float = MP3_SECONDS) -> bytes:
     """bench_secondary.py's MP3 content (mp3_16stream_device): stereo
     MPEG-1 frames at 44.1 kHz, 25% of the lines set to 1-11, global gain
-    174-184, from seed 300 + i, built with the port's encoder copy."""
-    from ohpipeline_tpu_torch._host import mp3_encoder
+    174-184, from seed 300 + i, built with the port's encoder copy
+    (ohpipeline_tpu_torch.bench_secondary.mp3_stream)."""
+    from ohpipeline_tpu_torch.bench_secondary import mp3_stream
 
-    rng = np.random.default_rng(300 + i)
-    frames = []
-    for _ in range(int(seconds * 44100 / 1152)):
-        spec = np.zeros((2, 576), np.int32)
-        m = rng.random((2, 576)) < 0.25
-        spec[m] = rng.integers(1, 12, m.sum())
-        frames.append(mp3_encoder.build_frame(
-            [spec[0], spec[1]], global_gain=int(rng.integers(174, 184))))
-    return b"".join(frames)
+    return mp3_stream(i, seconds)
 
 
 #: block types of the frames of mp3_block_stream, in turn: long, start,
@@ -3217,13 +3217,52 @@ def mesh_phase(streams, tracks, astreams, hstreams, mstreams) -> dict:
     return errs
 
 
-def check_precision() -> None:
-    import torch
+def bench_phase() -> dict:
+    """Phase 22: the headline bench at its defaults (3 passes; the floor
+    probe folded in) and the all-codecs aggregate, through their functions
+    on the card; returns each kernel's launches over the phase."""
+    from ohpipeline_tpu_torch import _kernels, bench, bench_secondary
 
-    if torch.backends.cuda.matmul.allow_tf32 \
-            or torch.get_float32_matmul_precision() != "highest":
-        raise AssertionError("float32 matmuls are not in full float32 "
-                             "(TF32 on)")
+    t0 = time.perf_counter()
+    _kernels.reset_launches()
+    rc, line = bench.run(passes=BENCH_PASSES)
+    print(json.dumps(line))
+    if rc != 0 or "error" in line or line["backend"] != "cuda":
+        raise AssertionError(f"phase 22: the headline failed (rc {rc})")
+    floor = {"metric": "secondary_floor", "value": line["secondary_floor"],
+             "codecs": line["secondary_codecs"]}
+    print(json.dumps(floor))
+    if set(floor["codecs"]) != set(bench_secondary.FLOOR_PATHS) \
+            or not all(v > 0 for v in floor["codecs"].values()):
+        raise AssertionError(f"phase 22: floor probe {floor['codecs']}")
+    r = bench_secondary.all_codecs_bench(passes=BENCH_ALL_PASSES)
+    print(json.dumps({"metric": "all_codecs_realtime_x",
+                      "value": r.pop("all_codecs_realtime_x"), **r}))
+    # 16 HE streams of ceil(seconds * 22050 / 1024) core frames, each 2048
+    # output samples at 44.1 kHz
+    he_want = 16 * math.ceil(bench_secondary.SECONDS * 22050 / 1024) \
+        * 2048 / 44100
+    if abs(r["per_codec_audio_s"]["he_aac"] - he_want) > 1e-9:
+        raise AssertionError(f"phase 22: HE-AAC counted "
+                             f"{r['per_codec_audio_s']['he_aac']} s, want "
+                             f"{he_want} s at 44.1 kHz")
+    launches = dict(_kernels.launches)
+    idle = [k for k, n in launches.items() if n <= 0 and k != "ps_mix"]
+    if idle:
+        raise AssertionError(f"phase 22: kernels {idle} did not launch")
+    print(f"phase 22: headline {line['value']:.1f} decoded s per wall s, "
+          f"floor {floor['value']:.1f}, all codecs {r['wall_s']:.3f} s a "
+          f"pass; launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def check_precision() -> None:
+    """Raises KernelError unless float32 matmuls on the card run in full
+    float32 (_kernels.require_full_fp32, which every device function of the
+    port that issues float products also calls)."""
+    from ohpipeline_tpu_torch import _kernels
+
+    _kernels.require_full_fp32("cuda")
 
 
 def main() -> None:
@@ -3806,18 +3845,24 @@ def main() -> None:
                                          phase=21)[0])
     check_precision()
 
+    # --- phase 22: the port's benches --------------------------------------
+    bench_launches = bench_phase()
+    check_precision()
+
     def bounds(b, library_ms=None):
         return {"bound_ms": b[0], "bound_by": b[1], "library_ms": library_ms}
 
     def flag(name):
         """Whether the render path's counted plays (phase 17's warm FLAC
         and ADTS plays, phase 18's warm plays) launched the kernel, and how
-        often; how often phase 20's counted playlist play did, and phase
-        21 (a)'s counted play through the ODP control plane."""
+        often; how often phase 20's counted playlist play did, phase 21
+        (a)'s counted play through the ODP control plane, and phase 22's
+        benches."""
         return {"on_render_path": on_path[name] > 0,
                 "render_launches": on_path[name],
                 "media_player_launches": player_launches[name],
-                "net_launches": net_launches[name]}
+                "net_launches": net_launches[name],
+                "bench_launches": bench_launches[name]}
 
     kernels = [
         {"name": "lpc", "route": "cuda",
@@ -3863,7 +3908,7 @@ def main() -> None:
          "ms": psm_ms, "plain_ms": psm_plain_ms, **bounds(psm_bound),
          **flag("ps_mix")},
     ]
-    print(f"phases 0-21 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 0-22 in {time.perf_counter() - t_start:.1f} s")
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

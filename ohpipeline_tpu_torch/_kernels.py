@@ -70,6 +70,47 @@ def checked_device(device) -> torch.device:
     return dev
 
 
+#: The settings that may let float32 matmuls on the card run in TF32, in the
+#: order torch resolves them: the per-backend value of the newer API first,
+#: then its global default.  "ieee" is full float32, "none" defers to the
+#: next setting, anything else refuses.
+_FP32_PRECISION = (("torch.backends.cuda.matmul.fp32_precision",
+                    lambda: torch.backends.cuda.matmul),
+                   ("torch.backends.fp32_precision", lambda: torch.backends))
+
+
+def require_full_fp32(device) -> None:
+    """Raise :class:`KernelError` if float32 matrix products on ``device``
+    may run in TF32 (or lower): the reference pins ``Precision.HIGHEST`` on
+    every float product, so the port's products are full float32 or refused.
+    A no-op for a device that is not CUDA.
+
+    Reads the newer API first (``torch.backends.cuda.matmul.fp32_precision``,
+    then ``torch.backends.fp32_precision``; "tf32" refuses, "ieee" passes,
+    "none" defers) and only where both read "none" or are absent the legacy
+    ``allow_tf32`` and ``torch.get_float32_matmul_precision()``, which raise
+    once a caller has set the newer API.  Sets and restores no flag: the
+    serving calls run in threads, and a process-wide toggle would race."""
+    if torch.device(device).type != "cuda":
+        return
+    for name, owner in _FP32_PRECISION:
+        value = getattr(owner(), "fp32_precision", "none")
+        if value == "ieee":
+            return
+        if value != "none":
+            raise KernelError(f"{name} is {value!r}: float32 matmuls on the "
+                              f"card would not run in full float32; set it "
+                              f"to 'ieee'")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise KernelError("torch.backends.cuda.matmul.allow_tf32 is True: "
+                          "float32 matmuls on the card would run in TF32")
+    precision = torch.get_float32_matmul_precision()
+    if precision != "highest":
+        raise KernelError(f"torch.get_float32_matmul_precision() is "
+                          f"{precision!r}: float32 matmuls on the card would "
+                          f"not run in full float32")
+
+
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 launches = {"lpc": 0, "rice": 0, "tns": 0, "sbr_env": 0, "celt_comb": 0,
             "mp3_window": 0, "ps_mix": 0}

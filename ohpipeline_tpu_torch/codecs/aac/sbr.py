@@ -20,8 +20,10 @@ regenerated from the counter seeds, and the 6-slot tail carry) runs as the
 hand-written kernel ``csrc/sbr_env.cu`` on CUDA tensors and as its plain
 version, :func:`noise_sine_planes` followed by :func:`envelope_scan_torch`,
 on CPU tensors.  Matrix products stay
-``torch.matmul`` in float32 with TF32 off, as the reference runs
-``Precision.HIGHEST``.
+``torch.matmul`` in full float32, as the reference runs
+``Precision.HIGHEST``: every function here that issues them first calls
+``_kernels.require_full_fp32``, which raises ``KernelError`` when TF32 is on
+for float32 matmuls on the card.
 
 :class:`SbrDeviceRunner` runs the AAC-LC core and the SBR group of several
 channels in one pass, with the SBR state and the core overlap kept on the
@@ -190,6 +192,7 @@ def noise_sine_planes(env_id, sine_bins, k_ord, noise_idx0, sine_ph0,
     tables, the (M,) parity row of +-1 and the float ``inject_cal``.  Every
     value is a table entry times 0 or 1, or 0 or +-inject_cal, so it is
     exact."""
+    _kernels.require_full_fp32(env_id.device)
     M = sine_bins.shape[-1]
     A = _onehot(env_id)
     k = k_ord.long()
@@ -241,6 +244,7 @@ def envelope_inputs(static: SbrStatic, pcm, cond: dict, state: dict):
     Returns (scan arguments, the compact form :func:`envelope_scan` takes;
     (Xre_ext, Xim_ext) the (C, 6 + F*32, 32) low-band slot timeline; the
     new ana_hist, x_hist_re/im and pre_re/im state)."""
+    _kernels.require_full_fp32(pcm.device)
     C, F, _ = pcm.shape
     kx, M = static.kx, static.M
     NS = F * 32
@@ -408,6 +412,7 @@ def device_decode_qmf(static: SbrStatic, pcm, cond: dict, state: dict):
     F*32, 64) adjusted QMF slots, new_state), with ``syn_state`` passed
     through unchanged, so that the caller (the parametric-stereo stage) owns
     the synthesis states."""
+    _kernels.require_full_fp32(pcm.device)
     C, F, _ = pcm.shape
     kx, M = static.kx, static.M
     NS = F * 32
@@ -430,6 +435,7 @@ def device_decode_group(static: SbrStatic, pcm, cond: dict, state: dict):
     (:func:`cond_to_device`); state: (C, ...) state tensors
     (:func:`state_to_device`).  Returns (out (C, F*2048) float32,
     new_state)."""
+    _kernels.require_full_fp32(pcm.device)
     (Zr, Zi), new_state = device_decode_qmf(static, pcm, cond, state)
     out, new_state["syn_state"] = synthesize_slots(static, Zr, Zi,
                                                    state["syn_state"])
@@ -440,6 +446,7 @@ def synthesize_slots(static: SbrStatic, Zr, Zi, syn_state):
     """64-band synthesis QMF for a run of slots: one product and 12 shifted
     adds of the 768-sample per-slot responses.  Zr, Zi (..., NS, 64);
     syn_state (..., 704).  Returns (out (..., NS*64), new syn_state)."""
+    _kernels.require_full_fp32(Zr.device)
     k = _consts(static, Zr.device)
     lead, NS = Zr.shape[:-2], Zr.shape[-2]
     contrib = torch.matmul(Zr, k["syn_re"]) + torch.matmul(Zi, k["syn_im"])
@@ -464,6 +471,7 @@ def core_imdct_device(specs, opidx, core_ov):
     ``torch.matmul`` per window length, each row takes its window, and the
     overlap-add is a shift (frame f needs only frame f-1's tail).  Returns
     (pcm (..., F, 1024), new_ov (..., 1024))."""
+    _kernels.require_full_fp32(specs.device)
     key = str(specs.device)
     if key not in _CORE_CONSTS:
         _CORE_CONSTS[key] = SYN.filterbank_constants(device=specs.device)
@@ -775,6 +783,7 @@ def ps_hybrid_analysis(k: dict, Zr, Zi, state: dict):
     history of QMF bands 0-2 and the 6-slot delay of bands 3-63.  Returns
     (mid_r, mid_i (C, S, 73): 12 hybrid subbands, then QMF bands 3-63
     delayed by 6 slots; the new hyb_hist_re / _im and dline_re / _im)."""
+    _kernels.require_full_fp32(Zr.device)
     S = Zr.shape[1]
     low_r = torch.cat([state["hyb_hist_re"], Zr[..., :3]], dim=1)
     low_i = torch.cat([state["hyb_hist_im"], Zi[..., :3]], dim=1)
@@ -946,6 +955,7 @@ def device_decode_group_ps(static: SbrStatic, ps: PsStatic, pcm, cond: dict,
     1024); syn_state_r (C, 704) the right synthesis tail; H_slots (C, F*32,
     4, 22).  Returns (out (C, 2, F*2048) float32, new_state, new_ps_state,
     new_syn_state_r)."""
+    _kernels.require_full_fp32(pcm.device)
     (Zr, Zi), new_state = device_decode_qmf(static, pcm, cond, state)
     XLr, XLi, XRr, XRi, new_ps = ps_decorrelate_mix(ps, Zr, Zi, H_slots,
                                                     ps_state)

@@ -18,8 +18,10 @@ shifted slice).  The one
 sequential program among them, the TNS all-pole scan along frequency, runs
 as the hand-written kernel ``csrc/tns.cu`` on CUDA tensors and as its plain
 version :func:`tns_scan_torch` on CPU tensors.  Matrix products stay
-``torch.matmul`` in float32; the port leaves PyTorch's default of no TF32
-as it is, since the reference runs ``Precision.HIGHEST``.
+``torch.matmul`` in full float32, as the reference runs
+``Precision.HIGHEST``: :func:`decode_chunk_zz`, :func:`filterbank_fast` and
+:func:`filterbank` first call ``_kernels.require_full_fp32``, which raises
+``KernelError`` when TF32 is on for float32 matmuls on the card.
 """
 
 from __future__ import annotations
@@ -370,6 +372,7 @@ def decode_chunk_zz(q4, sfb, ssf, ssr, msb, opx, esc_row, esc_pos, esc_val,
     elementwise front end reproduces the JAX package's float32 operations
     bit for bit.  Returns (pcm (T, B, 1024) float32, new_overlap).
     """
+    _kernels.require_full_fp32(sfb.device)
     Tn, B, _ = sfb.shape
     TB = Tn * B
     dev = sfb.device
@@ -432,6 +435,7 @@ def filterbank_fast(spec_t, opidx_t, overlap, M_long, M_short, W, SW):
     indices, overlap (B, 1024): IMDCT matmuls, windows and the overlap-add
     (the JAX package's lax.scan carry, here a shifted slice).  Returns
     (pcm (T, B, 1024), new_overlap)."""
+    _kernels.require_full_fp32(spec_t.device)
     Tn, B, _ = spec_t.shape
     x = _imdct_windowed(spec_t.reshape(Tn * B, 1024),
                         opidx_t.reshape(-1).long(), M_long, M_short, W, SW,
@@ -447,6 +451,7 @@ def filterbank(spec_t, opidx_t, overlap, A_bank, B_bank):
     second half ``spec @ B[op]`` is carried on: one product per operator
     the group uses, then the overlap-add as a shifted slice (the JAX
     package's lax.scan carry).  Returns (pcm (T, B, 1024), new_overlap)."""
+    _kernels.require_full_fp32(spec_t.device)
     Tn, B, _ = spec_t.shape
     flat = spec_t.reshape(Tn * B, 1024)
     ops = opidx_t.reshape(-1)

@@ -21,8 +21,10 @@ reduction and the constant operators) is the port's numpy copy,
   ``csrc/mp3_window.cu`` on CUDA tensors and its plain version
   :func:`mp3_window_torch` on CPU tensors.
 
-Matrix products stay ``torch.matmul`` in float32 with TF32 off (PyTorch's
-default), as the reference runs ``Precision.HIGHEST``.  The state is
+Matrix products stay ``torch.matmul`` in full float32, as the reference
+runs ``Precision.HIGHEST``: each function here that issues them first calls
+``_kernels.require_full_fp32``, which raises ``KernelError`` when TF32 is on
+for float32 matmuls on the card.  The state is
 ``(overlap (B, 576), vfifo (B, 16, 64))``, taken at the ``n_real`` boundary
 so zero padding past it never advances a stream; the path has no weights.
 """
@@ -118,6 +120,7 @@ def imdct_overlap(static: Mp3DeviceStatic, xr_t, btype_t, overlap,
     B, 576) float32 spectra, btype_t (Tg, B, 32) block types, overlap (B,
     576) -> ((Tg, B, 32, 18) subband samples, the new overlap (B, 576): the
     tails of granule n_real - 1)."""
+    _kernels.require_full_fp32(xr_t.device)
     Tg, B = xr_t.shape[:2]
     cand = torch.matmul(xr_t.reshape(-1, N_LINE), static.imdct) \
         .reshape(Tg, B, N_SB, 4, 36)
@@ -133,6 +136,7 @@ def matrixing(static: Mp3DeviceStatic, time_out, vfifo):
     """The polyphase matrixing of (Tg, B, 32, 18) subband samples behind the
     carried (B, 16, 64) V-FIFO (newest first) -> vfull (15 + 18 Tg, B, 64),
     the FIFO's 15 newest rows oldest first, then the group's slots."""
+    _kernels.require_full_fp32(time_out.device)
     Tg, B = time_out.shape[:2]
     S = time_out.permute(0, 3, 1, 2).reshape(Tg * N_SLOT, B, N_SB)
     V = torch.matmul(S, static.poly)                            # (T, B, 64)
@@ -147,6 +151,7 @@ def hybrid_synthesis_parallel(xr_t, btype_t, overlap, vfifo, n_real: int,
     (Tg, B, 32) per-subband block types, overlap (B, 576) and vfifo (B, 16,
     64) on one device.  Returns (pcm (Tg, B, 576) int32 in the bit_depth
     range, new overlap, new vfifo), the state at the n_real boundary."""
+    _kernels.require_full_fp32(xr_t.device)
     Tg = xr_t.shape[0]
     if not 1 <= n_real <= Tg:
         raise ValueError(f"n_real {n_real} outside 1..{Tg}")
@@ -170,6 +175,7 @@ def hybrid_synthesis_parallel_i16(q16, scl, btype_t, overlap, vfifo,
     the serving call (``synthesis.py:426-439``): q16 (Tg, B, 576) int16
     quantised spectra with per-granule-channel scales scl (Tg, B) float32
     (xr = q16 * scl); btype_t may be uint8."""
+    _kernels.require_full_fp32(q16.device)
     xr_t = q16.float() * scl[..., None]
     return hybrid_synthesis_parallel(xr_t, btype_t, overlap, vfifo, n_real,
                                      bit_depth)

@@ -23,8 +23,11 @@ everything after it for a whole group of frames of every stream in one pass:
   with it the carry ``m`` into the next frame, does not depend on the
   carry it received; every frame's carry is known at once.
 
-Matrix products stay ``torch.matmul`` in float32 with TF32 off (PyTorch's
-default), as the reference runs ``Precision.HIGHEST``.  The group state is
+Matrix products stay ``torch.matmul`` in full float32, as the reference
+runs ``Precision.HIGHEST``: :func:`tdac`, :func:`deemphasis` and
+:func:`device_decode_group` first call ``_kernels.require_full_fp32``, which
+raises ``KernelError`` when TF32 is on for float32 matmuls on the card.  The
+group state is
 ``(hist, c60, m)``: (S, CH, 1026) comb history, (S, CH, 60) TDAC tail and
 (S, CH) deemphasis memory; the path has no weights.
 """
@@ -208,6 +211,7 @@ def tdac(static: CeltDeviceStatic, X, gains, op, c60):
     """Denormalise, IMDCT and TDAC fold of a group, with the carried tails:
     -> ((S, F, CH, N) frame output before the comb, (S, F, CH, 60) each
     frame's tail).  Arguments as :func:`device_decode_group`'s."""
+    _kernels.require_full_fp32(X.device)
     S, F, CH, N = X.shape
     ov2 = static.ov // 2
     freq = (X.float() * (1.0 / X_SCALE)
@@ -236,6 +240,7 @@ def comb_rows(hist, out):
 def deemphasis(static: CeltDeviceStatic, filtered, m, S: int):
     """Deemphasis of the comb's (S * CH, F * N) output with the carried
     (S, CH) memory -> ((S, F, CH, N) int16 PCM, new memory)."""
+    _kernels.require_full_fp32(filtered.device)
     R = filtered.shape[0]
     x = filtered.reshape(S, R // S, -1, N_FRAME).transpose(1, 2)
     # one (S * F * CH, N) product: as a batch of (CH, N) rows per frame it
@@ -256,6 +261,7 @@ def device_decode_group(static: CeltDeviceStatic, X, gains, op, Tv, gt,
     ``(hist, c60, m)`` on the device of ``static``; op (S, F, 2), the one-hot
     transient layout of each frame, stays on the host (a numpy array or a
     CPU tensor), so the row split never waits on the card."""
+    _kernels.require_full_fp32(X.device)
     hist, c60, m = state
     S, _, CH, _ = X.shape
     out, tails = tdac(static, X, gains, op, c60)

@@ -22,8 +22,10 @@ stream at once:
 
 The stream axis is a batch dimension where the JAX package ``vmap``s.
 Spectra go up as int16 with a float scale per block and channel (the JAX
-package's wire).  Products stay ``torch.matmul`` in float32 with TF32 off.
-The path has no kernel: nothing in it is sequential.
+package's wire).  Products stay ``torch.matmul`` in full float32, as the
+reference runs ``Precision.HIGHEST``: :func:`group_step` first calls
+``_kernels.require_full_fp32``, which raises ``KernelError`` when TF32 is on
+for float32 matmuls on the card.  The path has no kernel: nothing in it is sequential.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import itertools
 import numpy as np
 import torch
 
+from ... import _kernels
 from ...host.codecs.base import BufferReader
 from ...host.codecs.vorbis.codebook import VorbisError
 from ...host.codecs.vorbis.headers import (parse_comment,
@@ -152,6 +155,7 @@ def group_step(ops: torch.Tensor, Xq, scale, onehot, lo, shift, carry):
     h1, bs1); onehot (S, G, 5), the configuration of each block (all zero
     for an inert row), stays on the host (a numpy array), so the row split
     never waits on the card."""
+    _kernels.require_full_fp32(Xq.device)
     S, G, ch, h1 = Xq.shape
     bs1 = 2 * h1
     lpad = (G + 3) * h1

@@ -365,6 +365,7 @@ def sharded_pipeline_step(mesh: Mesh, num_channels: int = 2):
         for i, bs in enumerate(_blocks(vspec.shape[0], dp)):
             for j, cols in enumerate(_blocks(op.shape[1], sp)):
                 d = mesh.devices[i, j]
+                _kernels.require_full_fp32(d)
                 vt.append((d, (bs, cols), torch.matmul(
                     vspec[bs].to(d), op_cols[(str(d), j)])))
         return (Sharded((F, nc, N), rendered), room_meters,

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from ohpipeline_tpu_torch import _host, _kernels, av, parallel, pipeline
+from ohpipeline_tpu_torch import (_host, _kernels, av, bench, bench_secondary,
+                                  parallel, pipeline)
 from ohpipeline_tpu_torch.codecs import aac
 from ohpipeline_tpu_torch.codecs.aac import sbr as aac_sbr
 from ohpipeline_tpu_torch.codecs.aac import serving as aac_serving
@@ -69,6 +70,12 @@ CALLS = {
         vorbis_device.decode_vorbis_streams_device, lambda: ([_vorbis()],)),
     "decode_vorbis_stream_device": (
         vorbis_device.decode_vorbis_stream_device, lambda: (_vorbis(),)),
+    "bench.run": (bench.run, lambda: (1, 1, 0.5, 1)),
+    "bench_secondary.floor_probe": (bench_secondary.floor_probe,
+                                    lambda: (1,)),
+    "bench_secondary.all_codecs_bench": (bench_secondary.all_codecs_bench,
+                                         lambda: (1,)),
+    "bench_secondary.main": (bench_secondary.main, lambda: ()),
 }
 
 
@@ -146,6 +153,18 @@ def test_without_a_card_the_player_naming_no_device_raises(tmp_path):
         player.main(["--uri", "tone://sine.wav?duration=1", "--wav",
                      str(out)])
     assert not out.exists()
+
+
+def test_without_a_card_the_bench_naming_no_device_raises(capsys):
+    """The bench runs on the card unless ``--cpu`` is given: without a card
+    it raises before it builds content or prints a line, whichever bench
+    is asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for argv in (["--smoke"], [], ["--secondary"], ["--all-codecs"]):
+        with pytest.raises(_kernels.KernelError):
+            bench.main(argv)
+    assert capsys.readouterr().out == ""
 
 
 #: Mesh calls that name no device: they span the visible cards.

@@ -5,8 +5,8 @@ SILK files through its pipeline, serves FLAC over a mesh (``mesh=``),
 fans a branch out to its devices (``IciBranch``), plays a tone through
 its MediaPlayer's Playlist source at volume 50, takes OHM audio from a
 Songcast sender on loopback into a SourceReceiver and writes a tone's WAV
-through its player entry point with every import of jax and of
-ohpipeline_tpu failing, in
+through its player entry point, and runs its headline bench's smoke run,
+with every import of jax and of ohpipeline_tpu failing, in
 the repository and in a directory that holds only the port, chip_smoke.py and
 the test assets; no module of ohpipeline_tpu is ever loaded; its HE path
 parses every SBR payload natively; its copies of the JAX package's .cc,
@@ -206,6 +206,9 @@ _BLOCKED = textwrap.dedent("""
         assert cli.main(["--cpu", "--uri", "tone://sine.wav?duration=1",
                          "--wav", tmp + "/o.wav"]) == 0
         assert os.path.getsize(tmp + "/o.wav") == 44 + 4 * 44100
+    from ohpipeline_tpu_torch import bench
+
+    assert bench.main(["--smoke", "--cpu"]) == 0
     loaded = [m for m in sys.modules if m == "ohpipeline_tpu"
               or m.startswith("ohpipeline_tpu.")]
     assert loaded == ["ohpipeline_tpu"], loaded     # the blocking None
