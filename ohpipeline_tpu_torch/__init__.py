@@ -45,6 +45,10 @@ parallel   the decode->render step, the mesh (``make_mesh``, ``Sharded``,
            fan-out and per-room render grid, and the sharded pipeline step
 entry      entry(device) -> (fn, args) for that step; dryrun_multichip,
            real decodes over a mesh against one device
+tracing    spans at the layer boundaries (the serving loop, the codec
+           plug-ins, the pump thread and the animators), recorded for
+           every thread inside ``recording()`` and named in a profiler's
+           timeline; counters of groups and of bytes up and back
 tools      measurement scripts run on the card
 
 Every public entry point runs on the card (``device="cuda"``) unless the

@@ -1,5 +1,7 @@
-"""The serving calls' placement and loop over blocks of streams, shared by
-the FLAC, AAC and MP3 ``decode_*_streams_device`` calls.
+"""The serving calls' placement, loop over blocks of streams and assembly,
+shared by the FLAC, AAC and MP3 ``decode_*_streams_device`` calls, with
+the serving loop's spans (``serve.parse``, ``serve.launch``,
+``serve.collect``, ``serve.assemble``).
 
 It imports no codec and no mesh code: a mesh is read only through its
 ``rows()`` and ``shape["dp"]`` (``parallel.Mesh``), so the codecs stay
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from ..tracing import span
 
 
 def blocks(n: int, parts: int) -> list:
@@ -50,16 +53,35 @@ def serve_blocks(gens: list, launch, collect) -> None:
     round's groups are collected (copied back) only then: each device keeps
     one group in flight while the host parses the next.  Closes ``gens``."""
     live, pending = list(range(len(gens))), []
+
+    def parsed(i):
+        with span("serve.parse", block=i):
+            return next(gens[i], _END)
+
+    def launched(i, item):
+        with span("serve.launch"):
+            return launch(i, item)
+
+    def collect_all(pending):
+        for p in pending:
+            with span("serve.collect"):
+                collect(*p)
+
     try:
         while items := [(i, item) for i in live
-                        if (item := next(gens[i], _END)) is not _END]:
+                        if (item := parsed(i)) is not _END]:
             live = [i for i, _ in items]
-            launched = [launch(i, item) for i, item in items]
-            for p in pending:
-                collect(*p)
-            pending = launched
-        for p in pending:
-            collect(*p)
+            now = [launched(i, item) for i, item in items]
+            collect_all(pending)
+            pending = now
+        collect_all(pending)
     finally:
         for g in gens:
             g.close()
+
+
+def assemble(outs: list, nch: int) -> list:
+    """Each stream's collected pieces joined: [(nch, nsamples) int32]."""
+    with span("serve.assemble"):
+        return [np.concatenate(o, axis=1) if o
+                else np.zeros((nch, 0), np.int32) for o in outs]

@@ -27,7 +27,10 @@ the host ``containers/mpeg4.py``, the AudioSpecificConfig
 (:func:`parse_audio_specific_config`), AAC-LC groups of
 :data:`GROUP_FRAMES` frames as deferred batches (:func:`decode_frames`) and
 HE-AAC groups of :data:`SBR_GROUP_FRAMES` frames through the same SBR
-runners as the ADTS plug-in.
+runners as the ADTS plug-in.  The ADTS plug-in's AAC-LC spans are
+``codec.parse`` (the native group parse) and, in :func:`decode_group_arrays`,
+``codec.prep`` (the host spectral prep, TNS included) and ``codec.device``
+(upload, filterbank, copy back of PCM and overlap).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ...host.codecs.base import (BufferReader, CodecBase, CodecStreamCorrupt,
 from ...host.codecs.flac.bitreader import BitReader
 from ...host.core.jiffies import Jiffies
 from ...host.core.streaminfo import PcmStreamInfo
+from ...tracing import count, nbytes, span
 from . import sbr as SBRD
 from . import synthesis as SYN
 
@@ -186,13 +190,20 @@ def decode_group_arrays(batch: dict, nframes: int, channels: int,
     """Array-native decode: host spectral prep (``prepare_group``) feeding
     the filterbank on ``device``.  Returns (channels, nframes*1024) int32 and
     advances ``state``."""
-    specs, opidx = SYN.prepare_group(batch, nframes, channels,
-                                     state.prev_shape)
-    spec_t, op_t, ov = _tensors(device, specs, opidx, state.overlap)
-    pcm, new_ov = SYN.filterbank_fast(spec_t, op_t, ov,
-                                      *SYN.filterbank_constants(device=device))
-    state.overlap = new_ov.cpu().numpy()
-    return _to_pcm(pcm, channels, bit_depth)
+    with span("codec.prep"):
+        specs, opidx = SYN.prepare_group(batch, nframes, channels,
+                                         state.prev_shape)
+    with span("codec.device"):
+        spec_t, op_t, ov = _tensors(device, specs, opidx, state.overlap)
+        consts = SYN.filterbank_constants(device=device)
+        count("h2d_bytes.codec.upload", nbytes(spec_t, op_t, ov))
+        count("h2d_bytes.codec.constants", nbytes(*consts))
+        count("groups.codec")
+        pcm, new_ov = SYN.filterbank_fast(spec_t, op_t, ov, *consts)
+        # the PCM comes back as int32 (_to_pcm), as wide as the float32
+        count("d2h_bytes.codec.copy_back", new_ov.nbytes + pcm.nbytes)
+        state.overlap = new_ov.cpu().numpy()
+        return _to_pcm(pcm, channels, bit_depth)
 
 
 NCFG = 4
@@ -474,8 +485,9 @@ class CodecAacAdts(CodecBase):
             return self._process_sbr()
         state, ch, dev = self._state, self._hdr.channels, self._device
         if self._use_native:
-            n, pos, batch = aac_native().aac_parse_group(
-                self._buf, 0, channels=ch, max_frames=GROUP_FRAMES)
+            with span("codec.parse"):
+                n, pos, batch = aac_native().aac_parse_group(
+                    self._buf, 0, channels=ch, max_frames=GROUP_FRAMES)
             self._buf = self._buf[pos:]
             if n == 0:
                 raise EndOfStream

@@ -44,9 +44,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._serving import serve_blocks, stream_blocks
+from .._serving import assemble, serve_blocks, stream_blocks
 from ..._host import aac_bitstream, aac_native, sbr_native
 from ..._host import aac_sbr as SBR
+from ...tracing import NEW, count, nbytes, span
 from . import sbr as SBRD
 from . import synthesis as SYN
 from .synthesis import decode_planes
@@ -134,7 +135,8 @@ def iter_groups(streams: list, frames_per_group: int = 64, *,
     S, G = len(streams), frames_per_group
     SC = S * nch
     parse = native.aac_parse_group_sbr if sbr else native.aac_parse_group
-    ACAP, MAXS, SSCAP, TNSCAP = _survey(streams, nch, G, parse)
+    with span("serve.survey"):
+        ACAP, MAXS, SSCAP, TNSCAP = _survey(streams, nch, G, parse)
     pos = [0] * S
     live = [True] * S
     pshape = [np.zeros(nch, np.int32) for _ in range(S)]
@@ -195,6 +197,15 @@ def to_device(planes: dict, device) -> dict:
             for k, v in planes.items()}
 
 
+def _upload(planes: dict, device) -> dict:
+    """:func:`to_device` of one serving group, counted."""
+    t = to_device(planes, device)
+    count("h2d_bytes.serve.upload",
+          nbytes(*(v for v in t.values() if isinstance(v, torch.Tensor))))
+    count("groups.serve")
+    return t
+
+
 def decode_aac_streams_device(streams: list, frames_per_group: int = 64, *,
                               device="cuda", mesh=None) -> list[np.ndarray]:
     """streams: ADTS AAC-LC files (bytes) sharing rate and channel count.
@@ -212,6 +223,7 @@ def decode_aac_streams_device(streams: list, frames_per_group: int = 64, *,
     outs: list[list[np.ndarray]] = [[] for _ in streams]
 
     def collect(pcm16, s0, counts):             # (G, S*C, 1024) int32
+        count("d2h_bytes.serve.copy_back", pcm16.nbytes)
         pcm16 = pcm16.cpu().numpy()
         for s, n in counts:
             if n:
@@ -221,13 +233,14 @@ def decode_aac_streams_device(streams: list, frames_per_group: int = 64, *,
     def launch(i, item):
         planes, counts = item
         dev, blk = shards[i]
-        pcm, ovs[i] = decode_planes(to_device(planes, dev), ovs[i], consts[i])
+        pcm, ovs[i] = decode_planes(_upload(planes, dev), ovs[i], consts[i])
         pcm16 = torch.round(pcm).clamp_(-32768, 32767).to(torch.int32)
         return pcm16, blk.start, counts
 
-    serve_blocks(gens, launch, collect)
-    return [np.concatenate(o, axis=1) if o else np.zeros((nch, 0), np.int32)
-            for o in outs]
+    with span("serve.call", request=NEW, codec="aac_lc",
+              streams=len(streams), blocks=len(shards)):
+        serve_blocks(gens, launch, collect)
+        return assemble(outs, nch)
 
 
 def _sbr_frames(dec, s: int, payloads: list, nch: int, hdr0,
@@ -286,6 +299,7 @@ def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
     outs: list[list[np.ndarray]] = [[] for _ in streams]
 
     def collect(pcm16, s0, counts):             # (S*C, G*2048) int16
+        count("d2h_bytes.serve.copy_back", pcm16.nbytes)
         pcm16 = pcm16.cpu().numpy()
         for s, n in counts:
             if n:
@@ -323,10 +337,11 @@ def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
                 for dev, blk in shards)
         planes, counts, per_ch = item
         dev, blk = shards[i]
-        pcm16 = runners[i].decode_group_multi_zz(to_device(planes, dev),
+        pcm16 = runners[i].decode_group_multi_zz(_upload(planes, dev),
                                                  per_ch, consts[i])
         return pcm16, blk.start, counts
 
-    serve_blocks([parsed(i) for i in range(len(shards))], launch, collect)
-    return [np.concatenate(o, axis=1) if o else np.zeros((nch, 0), np.int32)
-            for o in outs]
+    with span("serve.call", request=NEW, codec="he_aac",
+              streams=len(streams), blocks=len(shards)):
+        serve_blocks([parsed(i) for i in range(len(shards))], launch, collect)
+        return assemble(outs, nch)

@@ -13,7 +13,9 @@ the rice decode and the LPC recurrence are the hand-written kernels in
 :data:`GROUP_FRAMES` frames, parsed on the host (rice included, as the JAX
 plug-in does, by ``native.flac_parse_group`` or the Python frame parser) and
 synthesised by :func:`synthesise_batch` on its ``device`` when the
-controller resolves the batch.
+controller resolves the batch.  Its spans: ``codec.parse`` (the native
+group parse), ``codec.prep`` and ``codec.device`` (the host and device
+halves of a group's synthesis).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from ...host.core.jiffies import Jiffies
 from ...host.core.streaminfo import PcmStreamInfo
 from ...ops import lpc as lpc_ops
 from ...ops import pcm as pcm_ops
+from ...tracing import count, nbytes, span
 from . import rice
 
 #: Frames per device pass of one stream (~16 x 4096 = 1.5 s at 44.1 kHz).
@@ -120,14 +123,20 @@ def synthesise_batch(batch: dict, num_channels: int, nframes: int, *,
     PCM as numpy."""
     if nframes == 0:
         return np.zeros((num_channels, 0), np.int32)
-    B = nframes * num_channels
-    rows = {k: batch[k][:B] for k in ("data", "coeffs", "shift", "order",
-                                      "wasted")}
-    rows["assign"] = batch["assign"][:nframes]
-    t = to_device(rows, device)
-    out = synthesise_group(t["data"], t["coeffs"], t["shift"], t["order"],
-                           t["wasted"], t["assign"], num_channels).cpu()
-    out = out.numpy()
+    with span("codec.prep"):
+        B = nframes * num_channels
+        rows = {k: batch[k][:B] for k in ("data", "coeffs", "shift", "order",
+                                          "wasted")}
+        rows["assign"] = batch["assign"][:nframes]
+    with span("codec.device"):
+        t = to_device(rows, device)
+        count("h2d_bytes.codec.upload", nbytes(*t.values()))
+        count("groups.codec")
+        out = synthesise_group(t["data"], t["coeffs"], t["shift"],
+                               t["order"], t["wasted"], t["assign"],
+                               num_channels)
+        count("d2h_bytes.codec.copy_back", out.nbytes)
+        out = out.cpu().numpy()
     bs = batch["blocksize"]
     if all(bs[i] == out.shape[2] for i in range(nframes)):
         return out.transpose(1, 0, 2).reshape(num_channels, -1)
@@ -266,11 +275,12 @@ class CodecFlac(CodecBase):
     def _process_native(self, max_frame: int) -> DecodedBatch:
         si = self._meta.streaminfo
         self._fill(max_frame * (GROUP_FRAMES + 1))
-        nframes, pos, _status, batch = native.flac_parse_group(
-            self._buf, self._bit_pos, sample_rate=si.sample_rate,
-            bits_per_sample=si.bits_per_sample,
-            max_blocksize=si.max_blocksize, channels=si.channels,
-            max_frames=GROUP_FRAMES)
+        with span("codec.parse"):
+            nframes, pos, _status, batch = native.flac_parse_group(
+                self._buf, self._bit_pos, sample_rate=si.sample_rate,
+                bits_per_sample=si.bits_per_sample,
+                max_blocksize=si.max_blocksize, channels=si.channels,
+                max_frames=GROUP_FRAMES)
         if nframes == 0:
             raise EndOfStream
         self._bit_pos = pos

@@ -26,8 +26,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from .._serving import serve_blocks, stream_blocks
+from .._serving import assemble, serve_blocks, stream_blocks
 from ..._host import native, parse_metadata
+from ...tracing import NEW, count, nbytes, span
 from . import RICE_PLANES, synthesise_group_rice, to_device
 
 
@@ -110,7 +111,8 @@ def iter_groups(streams: list, frames_per_group: int = 32):
     every stream that has frames in it.  Rows of stream s start at
     s * frames_per_group * channels."""
     L = _Layout(streams, frames_per_group)
-    OCAP, CCAP, ECAP, BITCAP = L.survey()
+    with span("serve.survey"):
+        OCAP, CCAP, ECAP, BITCAP = L.survey()
     Bf = L.S * L.rows
     pos = L.start()
     live = [True] * L.S
@@ -176,6 +178,7 @@ def decode_flac_streams_device(streams: list, frames_per_group: int = 32, *,
     outs: list[list[np.ndarray]] = [[] for _ in streams]
 
     def collect(pcm, s0, meta_rows):           # (S*Gc, nch, stride)
+        count("d2h_bytes.serve.copy_back", pcm.nbytes)
         pcm = pcm.cpu().numpy()
         for s, n, sizes in meta_rows:
             for f in range(n):
@@ -185,9 +188,12 @@ def decode_flac_streams_device(streams: list, frames_per_group: int = 32, *,
         planes, meta_rows = item
         dev, blk = shards[i]
         t = to_device(planes, dev)
+        count("h2d_bytes.serve.upload", nbytes(*t.values()))
+        count("groups.serve")
         pcm = synthesise_group_rice(*(t[k] for k in RICE_PLANES), nch)
         return pcm, blk.start, meta_rows
 
-    serve_blocks(gens, launch, collect)
-    return [np.concatenate(o, axis=1) if o else np.zeros((nch, 0), np.int32)
-            for o in outs]
+    with span("serve.call", request=NEW, codec="flac", streams=len(streams),
+              blocks=len(shards)):
+        serve_blocks(gens, launch, collect)
+        return assemble(outs, nch)

@@ -31,8 +31,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._serving import serve_blocks, stream_blocks
+from .._serving import assemble, serve_blocks, stream_blocks
 from ...host.codecs.mp3 import bitstream as BS
+from ...tracing import NEW, count, nbytes, span
 from . import parse_vbr_header, prepare_granules
 from . import synthesis as SYN
 
@@ -120,6 +121,7 @@ def decode_mp3_streams_device(streams: list, frames_per_group: int = 32, *,
     outs: list[list[np.ndarray]] = [[] for _ in streams]
 
     def sink(pcm, s0, counts):                      # (n_real, S * nch, 576)
+        count("d2h_bytes.serve.copy_back", pcm.nbytes)
         pcm = pcm.cpu().numpy()
         for s, tg in enumerate(counts):
             if tg:
@@ -143,10 +145,13 @@ def decode_mp3_streams_device(streams: list, frames_per_group: int = 32, *,
         # Tg for one compiled shape; the granules past n_real are zeros)
         q16, scl, btp = (torch.from_numpy(a[:n_real]).to(dev)
                          for a in (q16, scl, btp))
+        count("h2d_bytes.serve.upload", nbytes(q16, scl, btp))
+        count("groups.serve")
         pcm, *states[i] = SYN.hybrid_synthesis_parallel_i16(
             q16, scl, btp, *states[i], n_real)
         return pcm, blk.start, counts
 
-    serve_blocks([groups(i) for i in range(len(shards))], launch, sink)
-    return [np.concatenate(o, axis=1) if o else np.zeros((nch, 0), np.int32)
-            for o in outs]
+    with span("serve.call", request=NEW, codec="mp3", streams=len(streams),
+              blocks=len(shards)):
+        serve_blocks([groups(i) for i in range(len(shards))], launch, sink)
+        return assemble(outs, nch)

@@ -13,20 +13,22 @@ resolves — many frames per device dispatch (the batching the reference
 cannot do).
 
 The port's copy of the JAX package's ``pipeline/codec_controller.py``, with
-one change: a device fault is not stream corruption.  A ``KernelError`` of
+two changes.  A device fault is not stream corruption.  A ``KernelError`` of
 the port's kernels, or an error torch raises for an operation on the card
 (``_kernels.is_device_fault``), out of ``stream_initialise()``,
 ``process()`` or a batch's ``resolve()`` propagates to the caller of
 ``pull()``; every other error still ends the stream with a
 ``StreamInterruptedEvent``, as the reference's contract for hostile input
-says.
+says.  And a new stream binds its id as the request id of the decoding
+thread's spans (``ohpipeline_tpu_torch.tracing``), whose first is the
+plug-in's ``stream_initialise()`` as ``codec.init``.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from ... import _kernels
+from ... import _kernels, tracing
 from ..codecs.base import (CodecBase, CodecRegistry, CodecStreamCorrupt,
                            DecodedBatch, EndOfStream, StreamReader)
 from ..core import events as ev
@@ -199,6 +201,7 @@ class CodecController(Element):
         self._stream_handler = e.stream_handler
         self._stream_id = e.info.stream_id or self._next_stream_id
         self._next_stream_id += 1
+        tracing.bind(f"stream.{self._stream_id}")
         self._reader.reset()
         self._active_reader = self._reader
         self._pcm_info = None
@@ -227,7 +230,8 @@ class CodecController(Element):
             self._emit(ev.StreamInterruptedEvent())
             return
         try:
-            info = self._active.stream_initialise(self._active_reader)
+            with tracing.span("codec.init"):
+                info = self._active.stream_initialise(self._active_reader)
         except Exception as exc:                       # noqa: BLE001
             # CodecStreamCorrupt, EndOfStream, or any unexpected parser
             # error on hostile input: reject the stream without crash

@@ -10,7 +10,7 @@ through protocols into the encoded reservoir; a decode pump thread runs
 the codec controller chain into the decoded reservoir; the animator thread
 pulls the render chain.  Reservoir backpressure bounds each stage.
 
-The port's copy of the JAX package's ``pipeline/manager.py``, with two
+The port's copy of the JAX package's ``pipeline/manager.py``, with three
 changes.  ``Pipeline`` and ``PipelineManager`` take the codec registry as an
 argument (the port builds one for a device:
 ``ohpipeline_tpu_torch.codecs.default_registry``, passed in by the facade
@@ -19,7 +19,9 @@ escapes the decode chain on the pump thread (a device fault, which the codec
 controller does not turn into a stream interruption) is kept in
 ``Pipeline.fault`` and handed to the render side as a
 :class:`DecodeFaultEvent`, which the animators raise, where the JAX pump
-thread would die and leave the render side waiting.
+thread would die and leave the render side waiting.  And the pump thread's
+push into the decoded reservoir is a ``pump.push`` span
+(``ohpipeline_tpu_torch.tracing``): the time it blocks on a full reservoir.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Optional
 from ..codecs.base import CodecRegistry
 from ..core import events as ev
 from ..core.jiffies import Jiffies
+from ...tracing import span
 from ..protocols import make_default_manager
 from . import control
 from .codec_controller import CodecController
@@ -220,7 +223,8 @@ class Pipeline:
         try:
             while not self._pump_quit:
                 e = self._decode_chain.pull()
-                self.decoded.push(e)
+                with span("pump.push"):
+                    self.decoded.push(e)
                 if e.kind == "quit":
                     break
         except BaseException as exc:                   # noqa: BLE001

@@ -10,7 +10,11 @@ no device work.  The animators take a ``device`` where the JAX ones take
 counts its late quanta.  A :class:`DecodeFaultEvent` (the pump thread's
 end after a device fault) is raised in the caller of ``AnimatorBatch.run``
 or ``AnimatorBasic.join``.  ``AnimatorSongcastSender`` renders into a
-Songcast sender of the net layer (``host/net/songcast.py``).
+Songcast sender of the net layer (``host/net/songcast.py``).  The render
+path's spans (``ohpipeline_tpu_torch.tracing``): ``render.pull``, an
+animator's pull of the pipeline, and ``render.gain``, its
+``RenderBatcher``'s pass over a batch of events; a stream's id is their
+request id from its ``DecodedStreamEvent`` on.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .. import _kernels
+from .. import _kernels, tracing
 from ..host.core import events as ev
 from ..host.core.jiffies import Jiffies
 from ..host.pipeline.manager import DecodeFaultEvent
@@ -82,6 +86,10 @@ class AnimatorBase:
         self.info = None
         self._quit = False
 
+    def _pull(self) -> ev.Event:
+        with tracing.span("render.pull"):
+            return self.pipeline.pull()
+
     def _handle(self, e: ev.Event, audio_batch: list) -> bool:
         """Returns False when the loop should stop; raises the error of a
         DecodeFaultEvent."""
@@ -102,6 +110,7 @@ class AnimatorBase:
         elif e.kind == "decoded_stream":
             self._flush(audio_batch)
             self.info = e.info
+            tracing.bind(f"stream.{e.stream_id}")
         elif e.kind == "drain":
             self._flush(audio_batch)
             e.report_drained()
@@ -118,7 +127,8 @@ class AnimatorBase:
     def _flush(self, audio_batch: list) -> None:
         if not audio_batch:
             return
-        rendered = self.batcher.render(audio_batch)
+        with tracing.span("render.gain"):
+            rendered = self.batcher.render(audio_batch)
         for e, samples in zip(audio_batch, rendered):
             self.sink(samples, e.info)
         audio_batch.clear()
@@ -136,7 +146,7 @@ class AnimatorBatch(AnimatorBase):
         batch: list[ev.AudioPcmEvent] = []
         count = 0
         while not self._quit:
-            e = self.pipeline.pull()
+            e = self._pull()
             count += 1
             if not self._handle(e, batch):
                 break
@@ -195,7 +205,7 @@ class AnimatorBasic(AnimatorBase):
             while not self._quit:
                 pulled = 0
                 while pulled < quantum_jiffies and not self._quit:
-                    e = self.pipeline.pull()
+                    e = self._pull()
                     if isinstance(e, (ev.AudioPcmEvent, ev.AudioDsdEvent)):
                         pulled += e.jiffies
                     elif e.kind == "silence":

@@ -1,30 +1,45 @@
-"""Where the time of the AAC-LC and HE-AAC v1 serving calls and of the
-HE-AAC v2 (parametric stereo) leg goes, on the card.
+"""Where the time of the AAC-LC and HE-AAC v1 serving calls, of the
+HE-AAC v2 (parametric stereo) leg and of an AAC-LC play goes, on the card.
 
-    python -m ohpipeline_tpu_torch.tools.profile_aac     # repository root
+    python -m ohpipeline_tpu_torch.tools.profile_aac [--out DIR]
 
-On ``chip_smoke.py``'s content (AAC-LC: phase 7's 48 streams of
-``tests/assets/dryrun.aac``, 64 frames a group; HE-AAC v1: phase 9's 16
-streams of ``dryrun_he.aac``, 48 frames a group; the PS leg: phase 16's 16
-``ps_content`` streams through one ``SbrPsDeviceRunner`` each in spec mode,
-96 frames a group), after one warm-up call of each:
+from the repository root.  On ``chip_smoke.py``'s content (AAC-LC: phase
+7's 48 streams of ``tests/assets/dryrun.aac``, 64 frames a group; HE-AAC
+v1: phase 9's 16 streams of ``dryrun_he.aac``, 48 frames a group; the PS
+leg: phase 16's 16 ``ps_content`` streams through one
+``SbrPsDeviceRunner`` each in spec mode, 96 frames a group; the play:
+``dryrun.aac`` through the render path), after one warm-up call of each:
 
-1. a staged call of each: the serving loop with ``torch.cuda.synchronize()``
-   after each stage, each stage's seconds summed over the groups.  AAC-LC:
-   the survey parse, the per-group parse (the native unpacker and the side
-   rows), upload, the group pass (``synthesis.decode_planes`` and the
-   rounding), copy-back.  HE-AAC v1: the same, with the SBR payloads'
-   parse and dequantisation (``serving._sbr_frames``) and the cond build
-   (``SbrDeviceRunner._build_stacked_cond``) between parse and upload, and
-   the SBR group (``sbr.device_decode_group``) in the group pass.  The PS
-   leg (its content is parsed before the call): the cond build and the
-   mixing matrices (``build_frame_cond``, ``build_ps_H_slots``), upload,
-   the group pass (``core_imdct_device``, ``device_decode_group_ps``),
-   copy-back;
+1. AAC-LC: a recorded call (``tools.recorded``: one warm call inside
+   ``tracing.recording()``; each span's count, total and self seconds:
+   ``serve.survey`` inside the first ``serve.parse``, ``serve.parse``,
+   ``serve.launch``, ``serve.collect``, ``serve.assemble``; the
+   counters).  HE-AAC v1 and the PS leg: a staged call, the serving loop
+   with ``torch.cuda.synchronize()`` after each stage, each stage's
+   seconds summed over the groups.  HE-AAC v1: the survey parse, the
+   per-group parse (the native unpacker and the side rows), the SBR
+   payloads' parse and dequantisation (``serving._sbr_frames``), the cond
+   build (``SbrDeviceRunner._build_stacked_cond``), upload, the group pass
+   (``synthesis.decode_planes``, the SBR group
+   ``sbr.device_decode_group`` and the rounding), copy-back.  The PS leg
+   (its content is parsed before the call): the cond build and the mixing
+   matrices (``build_frame_cond``, ``build_ps_H_slots``), upload, the group
+   pass (``core_imdct_device``, ``device_decode_group_ps``), copy-back;
 2. three warm unstaged calls of each, wall seconds;
 3. one warm call of each under ``torch.profiler`` (``tools.trace_call``):
    device time by kernel name, the union of the device's busy intervals,
-   and the idle share, 1 - busy / wall.
+   and the idle share, 1 - busy / wall; each trace, with the spans of the
+   call, goes to ``DIR/profile_aac.<leg>.trace.json`` (DIR defaults to the
+   current directory).
+
+The play: one ``PipelineManager`` and ``AnimatorBatch`` made before the
+profiler starts, as a renderer keeps them, play the asset once to warm up,
+once recorded (the plug-in's ``codec.init``, ``codec.parse``,
+``codec.prep`` and ``codec.device`` and the pump's ``pump.push`` on the
+pipeline's ``DecodePump`` thread, ``render.pull`` and ``render.gain`` on
+the caller; the codec's groups and bytes up and back) and once traced and
+recorded: ``DIR/profile_aac.play.trace.json`` places the pump thread's
+spans, which the profiler does not see, on its clock.
 
 Prints each part and then one JSON line with all the numbers, after the
 card's name and power limit.  Needs a CUDA device.
@@ -32,7 +47,9 @@ card's name and power limit.  Needs a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import sys
 import time
 
@@ -43,8 +60,8 @@ from .. import bench_secondary
 from ..codecs.aac import sbr as sbrd
 from ..codecs.aac import serving
 from ..codecs.aac import synthesis as syn
-from . import smoke
-from .profile_mp3_vorbis import Clock, profile
+from . import recorded, smoke
+from .profile_mp3_vorbis import Clock, profile, traced
 
 
 class SurveyClock(Clock):
@@ -75,30 +92,6 @@ class SurveyClock(Clock):
         self.t["parse"] += time.perf_counter() - t0 - (self.t["survey"] - s0)
         self.t0 = time.perf_counter()
         return item
-
-
-def staged_lc(streams: list, G: int, dev) -> dict:
-    """decode_aac_streams_device's loop, stage by stage."""
-    nch = 2
-    consts = syn.device_constants(
-        serving._header(streams)[1], device=dev)
-    ov = torch.zeros((len(streams) * nch, 1024), device=dev)
-    groups = 0
-    with SurveyClock("upload", "group_pass", "copy_back") as clock:
-        gen = serving.iter_groups(streams, G)
-        try:
-            while (item := clock.parsed(gen)) is not None:
-                t = serving.to_device(item[0], dev)
-                clock("upload")
-                pcm, ov = syn.decode_planes(t, ov, consts)
-                pcm16 = torch.round(pcm).clamp_(-32768, 32767).to(torch.int32)
-                clock("group_pass")
-                pcm16.cpu().numpy()
-                clock("copy_back")
-                groups += 1
-        finally:
-            gen.close()
-    return {**clock.t, "groups": groups}
 
 
 def staged_he(streams: list, G: int, dev) -> dict:
@@ -188,7 +181,38 @@ def staged_ps(contents: list, G: int, dev) -> dict:
     return {**clock.t, "groups": groups}
 
 
+def play(path: str, dev, chrome: str) -> dict:
+    """Plays ``path`` through the render path on ``dev``: recorded once,
+    then traced (profiler and recording) into ``chrome``."""
+    from .. import pipeline
+
+    cs = smoke()
+    mgr = pipeline.PipelineManager(
+        cs.render_params(pipeline.PipelineInitParams()), device=dev)
+    try:
+        sink = cs.Sink()
+        anim = pipeline.AnimatorBatch(mgr.pipeline.predriver, sink,
+                                      device=dev)
+
+        def run():
+            mgr.play_uri("file://" + path)
+            anim.run()
+
+        run()                                               # warm-up
+        rec = recorded(run)
+        print("play recorded:", rec)
+        trace = traced(run, chrome)
+        print("play trace:", trace)
+    finally:
+        mgr.quit()
+    return {"recorded": rec, "trace": trace}
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(prog="python -m "
+                                 "ohpipeline_tpu_torch.tools.profile_aac")
+    ap.add_argument("--out", default=".", help="directory of the traces")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_aac: no CUDA device")
     dev = torch.device("cuda")
@@ -200,21 +224,28 @@ def main() -> None:
     print(f"PS content built in {time.perf_counter() - t0:.1f} s")
     G_lc, G_he, G_ps = (cs.AAC_FRAMES_PER_GROUP, cs.HE_FRAMES_PER_GROUP,
                         cs.PS_GROUP)
+
+    def out(leg: str) -> str:
+        return os.path.join(args.out, f"profile_aac.{leg}.trace.json")
+
+    def call_lc():
+        return serving.decode_aac_streams_device(lc, G_lc, device=dev)
+
     res = {
         "aac_lc": profile(
-            "aac_lc", lambda: serving.decode_aac_streams_device(
-                lc, G_lc, device=dev),
-            lambda: staged_lc(lc, G_lc, dev),
-            bench_secondary.per_rate(44100)),
+            "aac_lc", call_lc, lambda: recorded(call_lc),
+            bench_secondary.per_rate(44100), out("aac_lc")),
         "he_aac": profile(
             "he_aac", lambda: serving.decode_he_streams_device(
                 he, G_he, device=dev),
             lambda: staged_he(he, G_he, dev),
-            bench_secondary.per_rate(bench_secondary.he_output_rate(he))),
+            bench_secondary.per_rate(bench_secondary.he_output_rate(he)),
+            out("he_aac")),
         "ps": profile(
             "ps", lambda: cs.serve_ps(ps, "cuda")[0],
             lambda: staged_ps(ps, G_ps, dev),
-            bench_secondary.per_rate(44100)),
+            bench_secondary.per_rate(44100), out("ps")),
+        "play": play(os.path.abspath(cs.AAC_ASSET), dev, out("play")),
     }
     print(card)
     print(json.dumps({"card": card, **res}))

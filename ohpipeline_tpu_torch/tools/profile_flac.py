@@ -1,23 +1,27 @@
 """Where the time of the FLAC serving call goes, on the card.
 
-    python -m ohpipeline_tpu_torch.tools.profile_flac    # repository root
+    python -m ohpipeline_tpu_torch.tools.profile_flac [--out DIR]
 
-On ``chip_smoke.py``'s FLAC content (phase 4's 18 streams: 16 CD-quality
-stereo streams and 2 at 24-bit / 96 kHz, 32 frames a group), after one
-warm-up call:
+from the repository root.  On ``chip_smoke.py``'s FLAC content (phase 4's
+18 streams: 16 CD-quality stereo streams and 2 at 24-bit / 96 kHz, 32
+frames a group), after one warm-up call:
 
-1. a staged call: the serving loop of ``decode_flac_streams_device`` with
-   ``torch.cuda.synchronize()`` after each stage (the survey parse, the
-   per-group parse, upload, group pass, copy-back), each stage's seconds
-   summed over the groups;
-2. five warm unstaged calls, wall seconds each;
-3. one warm call under ``torch.profiler``: the union of the device's busy
-   intervals, the idle share (1 - busy / wall), and the device time per
-   group of the ``rice`` and ``lpc`` kernels, of the glue around the rice
-   decode (``index_add``: the overflow units and the constant fills;
-   ``escape_scatter``: the escape triples written over the plane; ``cat``:
-   the whole-plane copy in front of it), of the copies and of the rest,
-   with the ten kernels that took longest.
+1. a recorded call (``tools.recorded``): one warm call inside
+   ``tracing.recording()``, with the count, total and self seconds of each
+   of its spans (``serve.call``; ``serve.survey`` inside the first
+   ``serve.parse``; ``serve.parse``, ``serve.launch``: upload and enqueue,
+   ``serve.collect``: copy back, ``serve.assemble``) and the counters
+   (groups, bytes up and back);
+2. five warm calls, wall seconds each;
+3. one warm call under ``torch.profiler``, recorded too: the union of the
+   device's busy intervals, the idle share (1 - busy / wall), and the
+   device time per group of the ``rice`` and ``lpc`` kernels, of the glue
+   around the rice decode (``index_add``: the overflow units and the
+   constant fills; ``escape_scatter``: the escape triples written over the
+   plane; ``cat``: the whole-plane copy in front of it), of the copies and
+   of the rest, with the ten kernels that took longest.  Its trace, with
+   the spans, goes to ``DIR/profile_flac.trace.json``
+   (``tracing.chrome_trace``; DIR defaults to the current directory).
 
 Prints each part and then one JSON line with all the numbers, after the
 card's name and power limit.  Needs a CUDA device.
@@ -25,16 +29,17 @@ card's name and power limit.  Needs a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import subprocess
 import sys
 import time
 
 import torch
 
-from ..codecs import flac
 from ..codecs.flac import serving
-from . import smoke, trace_call
+from . import recorded, smoke, trace_call
 
 #: Parts of the group pass, each named by substrings of its device events'
 #: names (CUDA kernels and copies); what matches none is "other".
@@ -51,57 +56,12 @@ def part_of(name: str) -> str:
                  if any(k in name for k in keys)), "other")
 
 
-def staged(streams: list, group: int, dev) -> dict:
-    """The serving loop, stage by stage, each ended by a synchronise; the
-    survey is timed inside the first group's parse and taken out of it."""
-    t = dict.fromkeys(("survey", "parse", "upload", "group_pass",
-                       "copy_back"), 0.0)
-    nch = serving.parse_metadata(streams[0]).streaminfo.channels
-    real = serving._Layout.survey
-
-    def survey(self):
-        t0 = time.perf_counter()
-        try:
-            return real(self)
-        finally:
-            t["survey"] += time.perf_counter() - t0
-
-    def clock(name, t0):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        t[name] += now - t0
-        return now
-
-    serving._Layout.survey = survey
-    groups = 0
-    try:
-        gen = serving.iter_groups(streams, group)
-        while True:
-            t0, s0 = time.perf_counter(), t["survey"]
-            item = next(gen, None)
-            t["parse"] += time.perf_counter() - t0 - (t["survey"] - s0)
-            if item is None:
-                break
-            t0 = time.perf_counter()
-            tt = flac.to_device(item[0], dev)
-            t0 = clock("upload", t0)
-            pcm = flac.synthesise_group_rice(
-                *(tt[k] for k in flac.RICE_PLANES), nch)
-            t0 = clock("group_pass", t0)
-            pcm.cpu().numpy()
-            clock("copy_back", t0)
-            groups += 1
-    finally:
-        serving._Layout.survey = real
-    t["groups"] = groups
-    return t
-
-
-def traced(streams: list, group: int, groups: int) -> dict:
+def traced(streams: list, group: int, groups: int, chrome: str) -> dict:
     """One warm call under torch.profiler: busy union, idle share, device
-    ms per group of each part, and the ten longest kernels."""
+    ms per group of each part, and the ten longest kernels; its trace with
+    the call's spans is written to ``chrome``."""
     _, events, info = trace_call(lambda: serving.decode_flac_streams_device(
-        streams, group, device="cuda"))
+        streams, group, device="cuda"), chrome)
     parts = dict.fromkeys([p for p, _ in PARTS] + ["other"], 0.0)
     by_name: dict = {}
     for e in events:
@@ -115,6 +75,10 @@ def traced(streams: list, group: int, groups: int) -> dict:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(prog="python -m "
+                                 "ohpipeline_tpu_torch.tools.profile_flac")
+    ap.add_argument("--out", default=".", help="directory of the trace")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_flac: no CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -125,24 +89,28 @@ def main() -> None:
     streams = [b for _, b in encoded]
     audio_s = sum(t.shape[1] / rate for (t, _), (_, _, rate, _) in
                   zip(encoded, jobs))
-    dev = torch.device("cuda")
     group = cs.FRAMES_PER_GROUP
-    serving.decode_flac_streams_device(streams, group, device="cuda")
+
+    def call():
+        serving.decode_flac_streams_device(streams, group, device="cuda")
+
+    call()
     torch.cuda.synchronize()                                  # warm-up
-    stages = staged(streams, group, dev)
-    print("staged:", stages)
+    spans = recorded(call)
+    print("recorded:", spans)
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
-        serving.decode_flac_streams_device(streams, group, device="cuda")
+        call()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     print("warm walls:", [round(w, 4) for w in walls])
-    trace = traced(streams, group, stages["groups"])
+    trace = traced(streams, group, spans["counters"]["groups.serve"],
+                   os.path.join(args.out, "profile_flac.trace.json"))
     print("trace:", trace)
     print(card)
     print(json.dumps({"card": card, "streams": len(streams),
-                      "audio_s": audio_s, "staged_s": stages,
+                      "audio_s": audio_s, "recorded": spans,
                       "warm_wall_s": walls,
                       "decoded_s_per_wall_s": [audio_s / w for w in walls],
                       "trace": trace}))

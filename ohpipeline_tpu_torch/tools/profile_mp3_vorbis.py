@@ -119,10 +119,11 @@ def staged_vorbis(streams: list, group: int, dev) -> dict:
     return {**clock.t, "groups": groups}
 
 
-def traced(run) -> dict:
+def traced(run, chrome: str | None = None) -> dict:
     """One warm call under torch.profiler: device time by kernel, busy
-    union and idle share."""
-    prof, _, info = trace_call(run)
+    union and idle share; with ``chrome``, its trace and spans are written
+    there (``tools.trace_call``)."""
+    prof, _, info = trace_call(run, chrome)
     by_kernel = sorted(
         ((k.key, k.count, getattr(k, "self_device_time_total", 0.0) / 1e3)
          for k in prof.key_averages()
@@ -132,7 +133,7 @@ def traced(run) -> dict:
             "top_kernels_ms": [[k, c, ms] for k, c, ms in by_kernel[:12]]}
 
 
-def profile(name, run, staged, audio_of) -> dict:
+def profile(name, run, staged, audio_of, chrome: str | None = None) -> dict:
     out = run()                                              # warm-up
     torch.cuda.synchronize()
     audio_s = audio_of(out)
@@ -145,7 +146,7 @@ def profile(name, run, staged, audio_of) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     print(f"{name} warm walls:", [round(w, 4) for w in walls])
-    trace = traced(run)
+    trace = traced(run, chrome)
     print(f"{name} trace:", trace)
     return {"audio_s": audio_s, "staged_s": stages, "warm_wall_s": walls,
             "decoded_s_per_wall_s": [audio_s / w for w in walls],
