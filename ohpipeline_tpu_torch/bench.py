@@ -18,8 +18,10 @@ with no audio fails the run (exit 1, an ``"error"`` field).
 
 One timed pass calls ``decode_flac_streams_device`` (32 frames a group) and
 then ``decode_aac_streams_device`` (64 frames a group) on the device, each
-ending with its PCM on the host; each call's survey parse is inside the
-pass.  Before the first pass the float32 matmul precision is checked
+ending with its PCM on the host; each call sizes every group's wire planes
+from that group's own parse (the JAX package's benches time a survey parse
+too, which gives its groups one compiled shape; the port has none).  Before
+the first pass the float32 matmul precision is checked
 (``_kernels.require_full_fp32``) and one untimed pass warms up.  Decoded
 seconds are per-channel output samples over the output rate, summed over
 streams; the value is their sum over the best pass's wall.  Without
@@ -125,7 +127,7 @@ def run(n_flac: int = 16, n_aac: int = 48, seconds: float = 30.0,
             "unit": "x_realtime", "vs_baseline": 0.0, "backend": dev.type,
             "card": bench_secondary.card_line(dev), "flac_streams": n_flac,
             "aac_streams": n_aac, "seconds": seconds,
-            "aac_content": AAC_CONTENT, "survey": "timed",
+            "aac_content": AAC_CONTENT, "planes": "sized per group",
             "frames_per_group": {"flac": bench_secondary.GROUP["flac"],
                                  "aac": bench_secondary.GROUP["aac_lc"]}}
     flac = flac_streams(n_flac, seconds)

@@ -3,17 +3,27 @@ wire: the serving API.
 
 Port of ``decode_aac_streams_device`` and ``decode_he_streams_device`` of
 ``ohpipeline_tpu.codecs.aac.serving``.  ADTS streams sharing a sample rate
-and channel count decode in groups of ``frames_per_group`` frames.  A survey
-parse sizes the shared planes once (escape list, side plane, short-window
-and TNS pools), as the reference does, so the wire planes match it plane by
-plane.  Per group the native unpacker (``native.aac_prepare_rows_zz``) lays
-every stream's quantized coefficients at their spectral positions as zigzag
-nibbles, with per-band scalefactor bytes, M/S bitmasks, pooled short-window
-scalefactors, escape triples for |q| > 7 and the TnsPool planes of TNS
-rows; the remaining exception rows (PNS, intensity) are prepared on the
-host into a float32 side plane.  One device pass
-(``synthesis.decode_chunk_zz``) then synthesises every stream's frames,
+and channel count decode in groups of ``frames_per_group`` frames.  Per
+group each stream parses once, and the native unpacker
+(``native.aac_prepare_rows_zz``) lays its quantized coefficients at their
+spectral positions as zigzag nibbles, with per-band scalefactor bytes, M/S
+bitmasks, pooled short-window scalefactors, escape triples for |q| > 7 and
+the TnsPool planes of TNS rows; the remaining exception rows (PNS,
+intensity) are prepared on the host into a float32 side plane.  One device
+pass (``synthesis.decode_chunk_zz``) then synthesises every stream's frames,
 with the overlap carried across groups on the device.
+
+Each group's planes are sized from that group's own parse.  The JAX package
+runs a survey parse first, to give every group of a call one compiled shape;
+the port's kernels and ops take any length, so it has none.  The call's
+escape list and short-window and TNS pools start at bounds taken from the
+group's frame and channel counts (:func:`_start_caps`) and are reused from
+group to group; a stream whose unpack fills one doubles the full list and
+unpacks again from the parse it has, with the lists cut back to their
+entries before it and its window shapes restored (counter
+``regrow.serve``).  ``epak``/``eva2``, ``ssf``/``ssr``, the TNS planes and
+``side``/``srow`` ship as their used prefix rounded up to a power of two,
+padded with row -1.
 
 HE-AAC v1 rides the same wire: the core's planes come from
 ``native.aac_parse_group_sbr``, which also hands back each frame's SBR
@@ -64,40 +74,31 @@ def _header(streams: list) -> tuple[int, int]:
     return nch, ri
 
 
-def _survey(streams: list, nch: int, G: int,
-            parse) -> tuple[int, int, int, int]:
-    """Per-group capacities (escapes, side rows, short rows, TNS rows)
-    that fit every group of the call, sized as the reference sizes them;
-    ``parse`` is the native group parser of the call."""
-    esc_cap = side_cap = ssf_cap = tns_cap = 0
-    S = len(streams)
-    pos = [0] * S
-    live = [True] * S
-    pbuf = None                  # reused parse arrays (~1 MB/call)
-    while any(live):
-        eb = sb = hb = tb = 0
-        for s in range(S):
-            if not live[s]:
-                continue
-            n, pos[s], pbuf = parse(streams[s], pos[s], channels=nch,
-                                    max_frames=G, out=pbuf)
-            live[s] = n == G
-            if n == 0:
-                continue
-            R = n * nch
-            eb += int((np.abs(pbuf["quant"][:R]) > 7).sum())
-            exotic = (pbuf["cb"][:R] >= 13).any(axis=1)
-            has_tns = pbuf["tnsn"][:R].any(axis=1)
-            sb += int(exotic.sum())
-            tb += int((has_tns & ~exotic).sum())
-            hb += int((pbuf["ics"][:R, 0] == 2).sum())
-        esc_cap = max(esc_cap, eb)
-        side_cap = max(side_cap, sb)
-        ssf_cap = max(ssf_cap, hb)
-        tns_cap = max(tns_cap, tb)
-    return (max(256, 1 << int(np.ceil(np.log2(esc_cap + 64)))),
-            int(max(8, side_cap + 8)), int(max(64, ssf_cap + 8)),
-            int(max(64, tns_cap + 8)))
+def _start_caps(rows: int) -> tuple[int, int, int]:
+    """Start capacities of a call's escape list, short-window pool and TNS
+    pool for groups of ``rows`` (frame, channel) rows: one escape in 64
+    coefficients, one pooled row in eight."""
+    return 16 * rows + 64, rows // 8 + 64, rows // 8 + 64
+
+
+def _grown(lst, keep: int):
+    """A list of ``lst``'s type with twice its capacity, holding its first
+    ``keep`` entries."""
+    new = type(lst)(2 * lst.cap)
+    for name, arr in vars(lst).items():
+        if isinstance(arr, np.ndarray):
+            getattr(new, name)[:keep] = arr[:keep]
+    new.count.value = keep
+    return new
+
+
+def _padded(src: np.ndarray, n: int, floor: int, fill) -> np.ndarray:
+    """``src[:n]`` padded with ``fill`` along its first axis to the next
+    power of two, at least ``floor``."""
+    out = np.full((max(floor, 1 << (n - 1).bit_length()),) + src.shape[1:],
+                  fill, src.dtype)
+    out[:n] = src[:n]
+    return out
 
 
 def _side_rows(b: dict, special, nch: int, SC: int, col0: int, side, srow,
@@ -129,14 +130,16 @@ def iter_groups(streams: list, frames_per_group: int = 64, *,
     ``(stream, nframes)`` for every stream still live in the group.
     Columns of stream s are s * channels ... (s + 1) * channels - 1.  With
     ``sbr`` the streams are HE-AAC: planes["sbr"] then lists, in the order
-    of ``counts``, each stream's (payload, nbits, crc) or None per frame."""
+    of ``counts``, each stream's (payload, nbits, crc) or None per frame.
+    Every yielded array is the group's own."""
     native = aac_native()
     nch, ri = _header(streams)
     S, G = len(streams), frames_per_group
     SC = S * nch
     parse = native.aac_parse_group_sbr if sbr else native.aac_parse_group
-    with span("serve.survey"):
-        ACAP, MAXS, SSCAP, TNSCAP = _survey(streams, nch, G, parse)
+    ecap, scap, tcap = _start_caps(G * SC)
+    lists = [native.EscapeList(ecap), native.ShortSfPool(scap),
+             native.TnsPool(tcap)]
     pos = [0] * S
     live = [True] * S
     pshape = [np.zeros(nch, np.int32) for _ in range(S)]
@@ -146,14 +149,9 @@ def iter_groups(streams: list, frames_per_group: int = 64, *,
         sfb = np.zeros((G, SC, 64), np.uint8)
         msb = np.zeros((G, SC // 2, 128), np.uint8)
         opx = np.zeros((G, SC), np.uint8)
-        epak = np.full(ACAP, -1, np.int32)
-        eva2 = np.zeros(ACAP, np.int16)
-        side = np.zeros((MAXS, 1024), np.float32)
-        srow = np.full(MAXS, -1, np.int32)
-        esc = native.EscapeList(ACAP)
-        ssfv = native.ShortSfPool(SSCAP)
-        tnsv = native.TnsPool(TNSCAP)
-        n_side = 0
+        for lst in lists:
+            lst.count.value = 0
+        sides, srows = [], []
         counts, payloads = [], []
         for s in range(S):
             if not live[s]:
@@ -168,22 +166,42 @@ def iter_groups(streams: list, frames_per_group: int = 64, *,
                 payloads.append(pbuf["sbr"])
             if n == 0:
                 continue
-            special = native.aac_prepare_rows_zz(
-                pbuf, n, G, nch, pshape[s], esc, ssfv,
-                q4=q4, sfb=sfb, msb=msb, opx=opx, col0=s * nch,
-                max_special=G * nch, tns=tnsv)
-            if special is None:
-                raise ValueError("zz capacity exceeded (survey bug)")
+            before = [lst.count.value for lst in lists]
+            shape0 = pshape[s].copy()
+            while (special := native.aac_prepare_rows_zz(
+                    pbuf, n, G, nch, pshape[s], lists[0], lists[1],
+                    q4=q4, sfb=sfb, msb=msb, opx=opx, col0=s * nch,
+                    max_special=G * nch, tns=lists[2])) is None:
+                if all(lst.count.value < lst.cap for lst in lists):
+                    raise ValueError(f"stream {s}: zz unpack failed with "
+                                     f"room in every list")
+                count("regrow.serve")
+                lists = [_grown(lst, c) if lst.count.value >= lst.cap
+                         else lst for lst, c in zip(lists, before)]
+                for lst, c in zip(lists, before):
+                    lst.count.value = c
+                pshape[s][:] = shape0
             if len(special):
-                n_side = _side_rows(pbuf, special, nch, SC, s * nch, side,
-                                    srow, n_side)
+                sides.append(np.empty((len(special), 1024), np.float32))
+                srows.append(np.empty(len(special), np.int32))
+                _side_rows(pbuf, special, nch, SC, s * nch, sides[-1],
+                           srows[-1], 0)
+        esc, ssfv, tnsv = lists
         ne = esc.count.value
-        epak[:ne] = esc.row[:ne] * 1024 + esc.pos[:ne]
-        eva2[:ne] = esc.val[:ne]
-        planes = dict(q4=q4, sfb=sfb, ssf=ssfv.sf, ssr=ssfv.row, msb=msb,
-                      opx=opx, epak=epak, eva2=eva2, side=side, srow=srow,
-                      tfi=tnsv.tfi, tco=tnsv.tco, tdir=tnsv.tdir,
-                      trow=tnsv.row, rate_index=ri)
+        side = np.concatenate([np.zeros((0, 1024), np.float32)] + sides)
+        srow = np.concatenate([np.zeros(0, np.int32)] + srows)
+        ns, nt = ssfv.count.value, tnsv.count.value
+        planes = dict(
+            q4=q4, sfb=sfb, ssf=_padded(ssfv.sf, ns, 64, 0),
+            ssr=_padded(ssfv.row, ns, 64, -1), msb=msb, opx=opx,
+            epak=_padded(esc.row[:ne] * 1024 + esc.pos[:ne], ne, 256, -1),
+            eva2=_padded(esc.val[:ne].astype(np.int16), ne, 256, 0),
+            side=_padded(side, len(side), 8, 0),
+            srow=_padded(srow, len(srow), 8, -1),
+            tfi=_padded(tnsv.tfi, nt, 64, 0),
+            tco=_padded(tnsv.tco, nt, 64, 0),
+            tdir=_padded(tnsv.tdir, nt, 64, 0),
+            trow=_padded(tnsv.row, nt, 64, -1), rate_index=ri)
         if sbr:
             planes["sbr"] = payloads
         yield planes, counts

@@ -1,11 +1,22 @@
 """Multi-stream batched FLAC decode over the rice wire: the serving API.
 
-Port of ``ohpipeline_tpu.codecs.flac.serving``.  A survey parse sizes the
-shared planes once; then, per group, every stream's next
-``frames_per_group`` frames parse through ``native.flac_parse_group_rice``
-(the entropy-coded bytes go to the device as they are, with per-unit bit
-cursors rebased into one shared slab) and one device pass
-(``codecs.flac.synthesise_group_rice``) decodes all streams' rows at once.
+Port of ``ohpipeline_tpu.codecs.flac.serving``.  Per group, every stream's
+next ``frames_per_group`` frames parse once through
+``native.flac_parse_group_rice`` (the entropy-coded bytes go to the device
+as they are, with per-unit bit cursors rebased into one shared slab) and one
+device pass (``codecs.flac.synthesise_group_rice``) decodes all streams'
+rows at once.
+
+Each group's planes are sized from that group's own parse.  The JAX package
+runs a survey parse first, to give every group of a call one compiled shape;
+the port's kernels and ops take any length, so it has none.  The call's
+overflow-unit, constant-fill and escape lists start at bounds taken from the
+group's frame count, channels and stride (:func:`_start_caps`) and are
+reused from group to group; a stream whose parse fills one (status -10,
+-11, -9) doubles that list and parses again from where it started, with the
+lists cut back to their entries before it (counter ``regrow.serve``).  A
+list plane ships as its used prefix rounded up to a power of two, padded
+with row -1; the byte slab holds this group's bytes.
 
 The host parses group g + 1 while the device runs group g: the pass is
 queued on the device's stream, and its PCM is copied back only after the
@@ -73,35 +84,42 @@ class _Layout:
     def start(self) -> list[int]:
         return [m.header_bytes * 8 for m in self.metas]
 
-    def survey(self) -> tuple[int, int, int, int]:
-        """Per-group plane capacities (overflow units, constant fills,
-        escapes, slab bytes) that fit every group of the call."""
-        ocap = ccap = ecap = bcap = 0
-        pos = self.start()
-        gc_t = np.zeros((self.rows, self.slots), np.int32)
-        gk_t = np.zeros((self.rows, self.slots), np.int8)
-        wm_t = np.zeros((self.rows, 32), np.int32)
-        live = [True] * self.S
-        while any(live):
-            ob = cb = eb = bb = 0
-            for s in range(self.S):
-                if not live[s]:
-                    continue
-                ov = native.RiceOverflow(2 * self.rows * self.slots + 64)
-                cf = native.RiceConstFill(self.rows + 64)
-                es = native.EscapeList(self.rows * self.stride + 64)
-                n, pos[s], st, _b, (b0, b1) = self.parse(
-                    s, pos[s], gc_t, gk_t, wm_t, ov, cf, es, 0)
-                _check_status(s, st)
-                live[s] = n == self.Gc
-                ob += ov.count.value
-                cb += cf.count.value
-                eb += es.count.value
-                bb += b1 - b0
-            ocap, ccap = max(ocap, ob), max(ccap, cb)
-            ecap, bcap = max(ecap, eb), max(bcap, bb)
-        return (max(256, ocap + 8), max(64, ccap + 8), max(64, ecap + 8),
-                -(-(bcap + 64) // 4096) * 4096)
+
+def _start_caps(S: int, rows: int, slots: int) -> tuple[int, int, int]:
+    """Start capacities of a call's overflow-unit, constant-fill and escape
+    lists for groups of ``S`` streams of ``rows`` rows of ``slots`` 64-sample
+    slots: two units a slot, one fill a row (a row is one subframe) and one
+    escape a slot.  A list that fills up grows."""
+    return (2 * S * rows * slots + 64, S * rows + 64, S * rows * slots + 64)
+
+
+#: The parser's status for a full list -> that list's index in ``lists``.
+_FULL = {-10: 0, -11: 1, -9: 2}
+
+
+def _grown(lst, keep: int):
+    """A list of ``lst``'s type with twice its capacity, holding its first
+    ``keep`` entries."""
+    new = type(lst)(2 * lst.cap)
+    for name, arr in vars(lst).items():
+        if isinstance(arr, np.ndarray):
+            getattr(new, name)[:keep] = arr[:keep]
+    new.count.value = keep
+    return new
+
+
+def _shipped(lst, floor: int, **fills) -> dict:
+    """The first ``lst.count`` entries of each of ``lst``'s arrays named in
+    ``fills`` (plane name -> (array name, padding value)), padded to the
+    next power of two, at least ``floor``."""
+    n = lst.count.value
+    size = max(floor, 1 << (n - 1).bit_length())
+    out = {}
+    for key, (name, fill) in fills.items():
+        src = getattr(lst, name)
+        out[key] = np.full(size, fill, src.dtype)
+        out[key][:n] = src[:n]
+    return out
 
 
 def iter_groups(streams: list, frames_per_group: int = 32):
@@ -109,15 +127,16 @@ def iter_groups(streams: list, frames_per_group: int = 32):
     the numpy wire planes of one device pass, keyed by
     ``codecs.flac.RICE_PLANES``, and ``(stream, nframes, blocksizes)`` for
     every stream that has frames in it.  Rows of stream s start at
-    s * frames_per_group * channels."""
+    s * frames_per_group * channels.  Every yielded array is the group's
+    own."""
     L = _Layout(streams, frames_per_group)
-    with span("serve.survey"):
-        OCAP, CCAP, ECAP, BITCAP = L.survey()
     Bf = L.S * L.rows
+    ocap, ccap, ecap = _start_caps(L.S, L.rows, L.slots)
+    lists = [native.RiceOverflow(ocap), native.RiceConstFill(ccap),
+             native.EscapeList(ecap)]
     pos = L.start()
     live = [True] * L.S
     while any(live):
-        bits = np.zeros(BITCAP, np.uint8)
         gcur = np.zeros((Bf, L.slots), np.int32)
         gk = np.full((Bf, L.slots), -1, np.int8)
         warm = np.zeros((Bf, 32), np.int32)
@@ -126,9 +145,9 @@ def iter_groups(streams: list, frames_per_group: int = 32):
         order = np.zeros(Bf, np.int32)
         wasted = np.zeros(Bf, np.int32)
         assign = np.zeros(L.S * L.Gc, np.int32)
-        ov = native.RiceOverflow(OCAP)
-        cf = native.RiceConstFill(CCAP)
-        es = native.EscapeList(ECAP)
+        for lst in lists:
+            lst.count.value = 0
+        spans = []                  # (stream, first byte, bytes)
         bbase = 0
         meta_rows = []
         for s in range(L.S):
@@ -136,17 +155,25 @@ def iter_groups(streams: list, frames_per_group: int = 32):
                 continue
             r0 = s * L.rows
             rs = slice(r0, r0 + L.rows)
-            oc0 = ov.count.value
-            n, pos[s], st, b, (b0, b1) = L.parse(
-                s, pos[s], gcur[rs], gk[rs], warm[rs], ov, cf, es, r0)
+            before = [lst.count.value for lst in lists]
+            while True:
+                n, end, st, b, (b0, b1) = L.parse(
+                    s, pos[s], gcur[rs], gk[rs], warm[rs], *lists, r0)
+                if st not in _FULL:
+                    break
+                count("regrow.serve")
+                full = _FULL[st]
+                lists[full] = _grown(lists[full], before[full])
+                for lst, c in zip(lists, before):
+                    lst.count.value = c
             _check_status(s, st)
+            pos[s] = end
             nb = b1 - b0
-            bits[bbase:bbase + nb] = np.frombuffer(streams[s], np.uint8,
-                                                   nb, b0)
             if bbase:       # rebase this stream's cursors into the slab
                 gsl = gcur[rs]
                 gsl[gk[rs] >= 0] += bbase * 8
-                ov.cur[oc0:ov.count.value] += bbase * 8
+                lists[0].cur[before[0]:lists[0].count.value] += bbase * 8
+            spans.append((s, b0, nb))
             bbase += nb
             rows = n * L.nch
             for key, dst in (("coeffs", coeffs), ("shift", shift),
@@ -155,12 +182,22 @@ def iter_groups(streams: list, frames_per_group: int = 32):
             assign[s * L.Gc:s * L.Gc + n] = b["assign"][:n]
             meta_rows.append((s, n, b["blocksize"][:n].copy()))
             live[s] = n == L.Gc
-        planes = dict(bits=bits, gcur=gcur, gk=gk, ocur=ov.cur, okk=ov.k,
-                      omode=ov.mode, ocnt=ov.cnt, orow=ov.row, opos=ov.pos,
-                      cfrow=cf.row, cfval=cf.val, cfn=cf.n, warm=warm,
-                      esc_row=es.row, esc_pos=es.pos, esc_val=es.val,
-                      coeffs=coeffs, shift=shift, order=order, wasted=wasted,
-                      assign=assign)
+        bits = np.zeros(-(-(bbase + 64) // 4096) * 4096, np.uint8)
+        at = 0
+        for s, b0, nb in spans:
+            bits[at:at + nb] = np.frombuffer(streams[s], np.uint8, nb, b0)
+            at += nb
+        ov, cf, es = lists
+        planes = dict(
+            bits=bits, gcur=gcur, gk=gk, warm=warm, coeffs=coeffs,
+            shift=shift, order=order, wasted=wasted, assign=assign,
+            **_shipped(ov, 256, ocur=("cur", 0), okk=("k", 0),
+                       omode=("mode", 0), ocnt=("cnt", 0), orow=("row", -1),
+                       opos=("pos", 0)),
+            **_shipped(cf, 64, cfrow=("row", -1), cfval=("val", 0),
+                       cfn=("n", 0)),
+            **_shipped(es, 64, esc_row=("row", -1), esc_pos=("pos", 0),
+                       esc_val=("val", 0)))
         yield planes, meta_rows
 
 

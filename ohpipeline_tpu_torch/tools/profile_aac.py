@@ -12,11 +12,10 @@ leg: phase 16's 16 ``ps_content`` streams through one
 
 1. AAC-LC: a recorded call (``tools.recorded``: one warm call inside
    ``tracing.recording()``; each span's count, total and self seconds:
-   ``serve.survey`` inside the first ``serve.parse``, ``serve.parse``,
-   ``serve.launch``, ``serve.collect``, ``serve.assemble``; the
-   counters).  HE-AAC v1 and the PS leg: a staged call, the serving loop
-   with ``torch.cuda.synchronize()`` after each stage, each stage's
-   seconds summed over the groups.  HE-AAC v1: the survey parse, the
+   ``serve.parse``, ``serve.launch``, ``serve.collect``,
+   ``serve.assemble``; the counters).  HE-AAC v1 and the PS leg: a staged
+   call, the serving loop with ``torch.cuda.synchronize()`` after each
+   stage, each stage's seconds summed over the groups.  HE-AAC v1: the
    per-group parse (the native unpacker and the side rows), the SBR
    payloads' parse and dequantisation (``serving._sbr_frames``), the cond
    build (``SbrDeviceRunner._build_stacked_cond``), upload, the group pass
@@ -64,36 +63,6 @@ from . import recorded, smoke
 from .profile_mp3_vorbis import Clock, profile, traced
 
 
-class SurveyClock(Clock):
-    """:class:`Clock` that also times ``serving._survey``, the survey parse
-    the first group's parse runs, and takes it out of the parse stage."""
-
-    def __init__(self, *names):
-        super().__init__("survey", "parse", *names)
-        self._real = serving._survey
-
-    def __enter__(self):
-        def survey(*args):
-            t0 = time.perf_counter()
-            try:
-                return self._real(*args)
-            finally:
-                self.t["survey"] += time.perf_counter() - t0
-        serving._survey = survey
-        return self
-
-    def __exit__(self, *exc):
-        serving._survey = self._real
-
-    def parsed(self, gen):
-        """next(gen), its time less the survey's booked as ``parse``."""
-        t0, s0 = time.perf_counter(), self.t["survey"]
-        item = next(gen, None)
-        self.t["parse"] += time.perf_counter() - t0 - (self.t["survey"] - s0)
-        self.t0 = time.perf_counter()
-        return item
-
-
 def staged_he(streams: list, G: int, dev) -> dict:
     """decode_he_streams_device's loop, stage by stage (one block)."""
     from .._host import aac_bitstream, sbr_native
@@ -106,38 +75,38 @@ def staged_he(streams: list, G: int, dev) -> dict:
     decs = [SBR.SbrDecoder(rate) for _ in streams]
     runner = None
     groups = 0
-    with SurveyClock("sbr_parse_dequant", "cond_build", "upload",
-                     "group_pass", "copy_back") as clock:
-        gen = serving.iter_groups(streams, G, sbr=True)
-        try:
-            while (item := clock.parsed(gen)) is not None:
-                planes, counts = item
-                per_ch = [([], [], []) for _ in range(len(streams) * nch)]
-                for (s, _n), payloads in zip(counts, planes["sbr"]):
-                    serving._sbr_frames(decs[s], s, payloads, nch, None,
-                                        per_ch[s * nch:(s + 1) * nch])
-                clock("sbr_parse_dequant")
-                if runner is None:
-                    runner = sbrd.SbrDeviceRunner(decs[0], len(per_ch),
-                                                  device=dev)
-                F = planes["q4"].shape[0]
-                stacked = runner._build_stacked_cond(len(per_ch), F, per_ch)
-                clock("cond_build")
-                t = serving.to_device(planes, dev)
-                cond = sbrd.cond_to_device(stacked, dev)
-                clock("upload")
-                pcm, runner._core_ov = syn.decode_planes(t, runner._core_ov,
-                                                         consts)
-                out, runner._stacked = sbrd.device_decode_group(
-                    runner.static, pcm.transpose(0, 1), cond,
-                    runner._stacked)
-                pcm16 = sbrd._pcm16(out)
-                clock("group_pass")
-                pcm16.cpu().numpy()
-                clock("copy_back")
-                groups += 1
-        finally:
-            gen.close()
+    clock = Clock("parse", "sbr_parse_dequant", "cond_build", "upload",
+                  "group_pass", "copy_back")
+    gen = serving.iter_groups(streams, G, sbr=True)
+    try:
+        for planes, counts in gen:
+            clock("parse")
+            per_ch = [([], [], []) for _ in range(len(streams) * nch)]
+            for (s, _n), payloads in zip(counts, planes["sbr"]):
+                serving._sbr_frames(decs[s], s, payloads, nch, None,
+                                    per_ch[s * nch:(s + 1) * nch])
+            clock("sbr_parse_dequant")
+            if runner is None:
+                runner = sbrd.SbrDeviceRunner(decs[0], len(per_ch),
+                                              device=dev)
+            F = planes["q4"].shape[0]
+            stacked = runner._build_stacked_cond(len(per_ch), F, per_ch)
+            clock("cond_build")
+            t = serving.to_device(planes, dev)
+            cond = sbrd.cond_to_device(stacked, dev)
+            clock("upload")
+            pcm, runner._core_ov = syn.decode_planes(t, runner._core_ov,
+                                                     consts)
+            out, runner._stacked = sbrd.device_decode_group(
+                runner.static, pcm.transpose(0, 1), cond,
+                runner._stacked)
+            pcm16 = sbrd._pcm16(out)
+            clock("group_pass")
+            pcm16.cpu().numpy()
+            clock("copy_back")
+            groups += 1
+    finally:
+        gen.close()
     return {**clock.t, "groups": groups}
 
 

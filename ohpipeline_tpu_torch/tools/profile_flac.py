@@ -8,8 +8,8 @@ frames a group), after one warm-up call:
 
 1. a recorded call (``tools.recorded``): one warm call inside
    ``tracing.recording()``, with the count, total and self seconds of each
-   of its spans (``serve.call``; ``serve.survey`` inside the first
-   ``serve.parse``; ``serve.parse``, ``serve.launch``: upload and enqueue,
+   of its spans (``serve.call``; ``serve.parse``: each stream's group
+   parsed once; ``serve.launch``: upload and enqueue,
    ``serve.collect``: copy back, ``serve.assemble``) and the counters
    (groups, bytes up and back);
 2. five warm calls, wall seconds each;

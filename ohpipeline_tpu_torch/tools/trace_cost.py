@@ -18,12 +18,13 @@ the cell's content from ``--seed``, its session, warmed up).  It measures:
    ``P`` with it on, in turns (off on on off ...), each window's rate
    (``decode_x`` or ``play_x``, as the benchmark's readers compute it)
    and, with recording on, the spans' shares of the recording's wall:
-   the batch cells' ``serve.survey``, the per-group parse (``serve.parse``
-   self time), ``serve.collect`` + ``serve.assemble``, ``serve.launch``
-   and ``serve.call``; the play cell's ``codec.parse`` + ``codec.prep``
-   and ``codec.device`` on ``DecodePump``, ``pump.push``, ``render.pull``,
-   ``render.gain``, and the bytes up a plug-in group; spans and groups a
-   second;
+   the batch cells' per-group parse (``serve.parse`` self time),
+   ``serve.collect`` + ``serve.assemble``, ``serve.launch`` and
+   ``serve.call``, with the calls and the lists regrown
+   (``regrow.serve``) in the window; the play cell's ``codec.parse`` +
+   ``codec.prep`` and ``codec.device`` on ``DecodePump``, ``pump.push``,
+   ``render.pull``, ``render.gain``, and the bytes up a plug-in group;
+   spans and groups a second;
 3. per cell, the medians off and on, their ratio, and the cost of tracing
    counted bottom up: spans a second times a span's cost (on, and off),
    groups a second times a group's counters.
@@ -152,11 +153,12 @@ def shares(rec, kind: str) -> dict:
     out = {"spans_per_s": len(rec.spans) / wall}
     if kind == "serving":
         groups = rec.counters.get("groups.serve", 0)
-        out.update(survey_share=pct("serve.survey"),
-                   group_parse_share=pct("serve.parse", key="self_s"),
+        out.update(group_parse_share=pct("serve.parse", key="self_s"),
                    collect_share=pct("serve.collect", "serve.assemble"),
                    launch_share=pct("serve.launch"),
-                   call_share=pct("serve.call"))
+                   call_share=pct("serve.call"),
+                   calls=tot.get("serve.call", {}).get("count", 0),
+                   regrows=rec.counters.get("regrow.serve", 0))
     else:
         groups = rec.counters.get("groups.codec", 0)
         up = sum(v for k, v in rec.counters.items()

@@ -58,9 +58,8 @@ from . import _kernels
 #: ``span(..., request=NEW)`` starts a new request id ("call.<n>").
 NEW = object()
 #: The spans that open a profiler twin: host work with no device work
-#: inside (the survey, a group's parse, the assembly, the animator's pull).
-TWINS = frozenset({"serve.survey", "serve.parse", "serve.assemble",
-                   "render.pull"})
+#: inside (a group's parse, the assembly, the animator's pull).
+TWINS = frozenset({"serve.parse", "serve.assemble", "render.pull"})
 
 _recording: "Recording | None" = None
 _local = threading.local()

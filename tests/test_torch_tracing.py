@@ -138,8 +138,7 @@ def test_serving_spans_nest_under_their_call(codec):
         inside = [s for s in rec.spans if s is not call
                   and call["start_ns"] <= s["start_ns"] <= call["end_ns"]]
         assert {s["name"] for s in inside} == {
-            "serve.survey", "serve.parse", "serve.launch", "serve.collect",
-            "serve.assemble"}
+            "serve.parse", "serve.launch", "serve.collect", "serve.assemble"}
         for s in inside:
             assert s["request"] == call["request"]
             assert s["end_ns"] <= call["end_ns"]
@@ -147,10 +146,9 @@ def test_serving_spans_nest_under_their_call(codec):
             while top["parent"] is not None:
                 top = by_id[top["parent"]]
             assert top is call
-        survey, = (s for s in inside if s["name"] == "serve.survey")
         first_parse = min((s for s in inside if s["name"] == "serve.parse"),
                           key=lambda s: s["start_ns"])
-        assert survey["parent"] == first_parse["id"]
+        assert first_parse["parent"] == call["id"]
         assert first_parse["attrs"] == {"block": 0}
         children = [s for s in inside if s["parent"] == call["id"]]
         covered = sum(s["end_ns"] - s["start_ns"] for s in children)
@@ -160,9 +158,10 @@ def test_serving_spans_nest_under_their_call(codec):
                    if s["name"] == name)
 
     totals = tracing.totals(rec.spans)
+    # each stream parses once: no survey span inside the parse
     assert totals["serve.parse"]["self_s"] == pytest.approx(
-        (total_ns("serve.parse") - total_ns("serve.survey")) / 1e9)
-    assert totals["serve.survey"]["count"] == 2
+        total_ns("serve.parse") / 1e9)
+    assert not any(s["name"] == "serve.survey" for s in rec.spans)
     groups = sum(s["name"] == "serve.launch" for s in rec.spans)
     assert rec.counters["groups.serve"] == groups > 2
     assert rec.wall_s * 1e9 >= sum(c["end_ns"] - c["start_ns"]
@@ -276,8 +275,7 @@ def test_outside_a_recording_a_profiled_thread_sees_the_spans_as_host_ops():
     names = _profiled_serving_loop()
     assert [n for n in names if n.startswith("serve.")] == [
         "serve.parse", "serve.parse", "serve.parse", "serve.assemble"]
-    assert tracing.TWINS == {"serve.survey", "serve.parse", "serve.assemble",
-                             "render.pull"}
+    assert tracing.TWINS == {"serve.parse", "serve.assemble", "render.pull"}
 
 
 @pytest.mark.gpu
@@ -425,14 +423,11 @@ def test_trace_cost_shares_are_the_spans_over_the_recordings_wall(kind):
             / 1e9 / rec.wall_s)
 
     if kind == "serving":
-        parse_self = sum(s["end_ns"] - s["start_ns"] for s in rec.spans
-                         if s["name"] == "serve.parse") - sum(
-            s["end_ns"] - s["start_ns"] for s in rec.spans
-            if s["name"] == "serve.survey")
-        assert got["survey_share"] == pct({"serve.survey"})
-        assert got["survey_share"] > 0
-        assert got["group_parse_share"] == pytest.approx(
-            100 * parse_self / 1e9 / rec.wall_s)
+        assert "survey_share" not in got
+        assert got["calls"] == 1
+        assert got["regrows"] == rec.counters.get("regrow.serve", 0)
+        assert got["group_parse_share"] == pct({"serve.parse"})
+        assert got["group_parse_share"] > 0
         assert got["collect_share"] == pct({"serve.collect",
                                             "serve.assemble"})
         assert got["groups_per_s"] == pytest.approx(
