@@ -107,9 +107,17 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
           f"{took[0]:.4f} / {took[len(took) // 2]:.4f} / {took[-1]:.4f} s "
           f"(least / median / most)", file=sys.stderr)
     if trace:
+        from . import spans
         from . import trace as tr
         n = int(cell["traced_requests"])
-        window["trace"] = tr.traced(lambda: session.traced_requests(n))
+        # the port's spans, recorded over the same requests as the trace;
+        # those with a profiler twin still name the trace's idle gaps.
+        # They are reduced once the profiled stretch has ended.
+        recs = []
+        window["trace"] = tr.traced(lambda: recs.append(
+            spans.recorded(lambda: session.traced_requests(n))))
+        window["spans"] = spans.summary(recs[0].spans, recs[0].counters,
+                                        recs[0].wall_s)
         window["work"] = {k: {q: v * n for q, v in w.items()} for k, w in
                           work.per_request(content, cell).items()}
     dev = {"platform": "gpu" if device != "cpu" else "cpu"}

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ast
 import hashlib
+import importlib
 import json
 import pathlib
 import re
@@ -31,15 +32,27 @@ BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SEED = 2 ** 31 + 11
-SMALL = {"flac_cd.batch": {"streams": 2, "stream_seconds": 1.5},
-         "aac_lc_radio.batch": {"streams": 3, "stream_seconds": 3.0},
-         "flac_cd.play": {"streams": 2, "stream_seconds": 1.5,
-                          "check_every": 1},
-         "aac_lc_radio.play": {"streams": 2, "stream_seconds": 3.0,
-                               "check_every": 1}}
 #: Every cell the harness has a file for (``flac_cd.play`` among them,
 #: measured but left out of ``BENCHMARK.json``).
 CELLS = sorted(p.stem for p in (ROOT / "workloads").glob("*.json"))
+#: Each cell's sizes on the CPU, ``small/<cell>.json``: entries of the
+#: cell's file, replaced where the tests run it.
+SMALL = pathlib.Path(__file__).resolve().parent / "small"
+
+
+def _small(name: str) -> dict:
+    return run.load_json(SMALL / f"{name}.json")
+
+
+def _entry(name: str) -> str:
+    return run.load_json(ROOT / "workloads" / f"{name}.json")["entry"]
+
+
+#: The cells of ``BENCHMARK.json`` that drive a batched serving call.
+SERVING = [w["name"] for w in BENCH["workloads"]
+           if _entry(w["name"]) == "serving"]
+#: Every cell the harness has a file for that plays through the render path.
+PLAYS = [c for c in CELLS if _entry(c) == "play"]
 
 #: sha256 of the port's encoder's bytes at 15c54f8 (ohpipeline_tpu_torch/
 #: host/codecs/flac/encoder.py, encode_flac(x, 44100, 16)), on make_track
@@ -55,7 +68,7 @@ ENCODER_DIGESTS = {
 
 def _cell(name: str) -> dict:
     return {**run.load_json(ROOT / "workloads" / f"{name}.json"),
-            **SMALL[name]}
+            **_small(name)}
 
 
 def _cfg(cell: dict) -> dict:
@@ -80,7 +93,7 @@ def test_every_file_loads_by_name_and_every_name_is_allowed():
         cell = run.load_json(ROOT / "workloads" / f"{w['name']}.json")
         assert cell["name"] == w["name"] and cell["config"] == w["config"]
         assert cell["config"] in cfg_names
-        assert cell["chips"] == w["chips"] == 1
+        assert cell["chips"] == w["chips"] in (1, 4)
         assert (ROOT / "entries" / f"{cell['entry']}.py").is_file()
         assert NAME.match(w["traffic"]) and len(w["why"]) <= 200
         reported = [m["name"] for m in metrics
@@ -98,13 +111,27 @@ def test_every_file_loads_by_name_and_every_name_is_allowed():
         assert m["moves"] in {e["name"] for e in BENCH["end_to_end"]}
     assert all(NAME.match(n) for n in cfg_names | set(CELLS))
     assert {w["name"] for w in BENCH["workloads"]} <= set(CELLS)
+    assert {p.stem for p in SMALL.glob("*.json")} <= set(CELLS)
+    # four chips only where the contract allows: one such cell, or a
+    # quarter of the cells rounded down, whichever is more
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(BENCH["workloads"]) // 4)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_every_cell_has_small_sizes_of_its_own_keys(name):
+    """A cell is added with new files only: its file under ``workloads/``
+    and its CPU sizes under ``tests/small/``, each an entry of the cell."""
+    small = _small(name)
+    assert small and set(small) <= set(
+        run.load_json(ROOT / "workloads" / f"{name}.json"))
 
 
 # ---------------------------------------------------------------------------
 # content
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["flac_cd.batch", "aac_lc_radio.batch"])
+@pytest.mark.parametrize("name", SERVING)
 def test_content_is_the_same_for_a_seed_and_differs_for_another(name):
     cell = _cell(name)
     cfg = _cfg(cell)
@@ -246,7 +273,7 @@ def test_a_directory_of_only_the_benchmark_exits_non_zero(tmp_path):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_a_run_on_the_cpu_is_correct(name):
-    line = run.run_cell(name, SEED, 0.5, False, "cpu", SMALL[name])
+    line = run.run_cell(name, SEED, 0.5, False, "cpu", _small(name))
     assert line["correct"], line["checks"]
     assert line["attempted"] >= 1 and line["failed"] == 0
     assert list(line)[-1] == "checks"
@@ -255,7 +282,7 @@ def test_a_run_on_the_cpu_is_correct(name):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_the_control_fails_the_comparison(name):
-    out = control.control(name, SEED, SMALL[name])
+    out = control.control(name, SEED, _small(name))
     assert all(c["failed"] for c in out["checks"].values()), out
 
 
@@ -281,26 +308,21 @@ def _drop_half(fn):
     return broken
 
 
-def _serving_module(name):
-    from ohpipeline_tpu_torch.codecs.aac import serving as aac_serving
-    from ohpipeline_tpu_torch.codecs.flac import serving as flac_serving
-
-    return flac_serving if name.startswith("flac") else aac_serving
-
-
-def _serving_fn(name):
-    return ("decode_flac_streams_device" if name.startswith("flac")
-            else "decode_aac_streams_device")
+def _serving_call(name):
+    """The module and the function name of the serving call that cell
+    ``name``'s configuration names."""
+    module, fn = _cfg(_cell(name))["serving_call"].split(":")
+    return importlib.import_module(module), fn
 
 
 @pytest.mark.parametrize("fault", ["altered", "half_left_out"])
-@pytest.mark.parametrize("name", ["flac_cd.batch", "aac_lc_radio.batch"])
+@pytest.mark.parametrize("name", SERVING)
 def test_a_broken_serving_call_comes_out_not_correct(name, fault,
                                                      monkeypatch):
-    mod, fn = _serving_module(name), _serving_fn(name)
+    mod, fn = _serving_call(name)
     wrap = _alter_one_sample if fault == "altered" else _drop_half
     monkeypatch.setattr(mod, fn, wrap(getattr(mod, fn)))
-    line = run.run_cell(name, SEED, 0.5, False, "cpu", SMALL[name])
+    line = run.run_cell(name, SEED, 0.5, False, "cpu", _small(name))
     assert not line["correct"], line["checks"]
 
 
@@ -320,11 +342,11 @@ def test_a_state_left_unchanged_comes_out_not_correct(name, monkeypatch):
 
     monkeypatch.setattr(serving, "decode_planes", stale_planes)
     monkeypatch.setattr(synthesis, "filterbank_fast", stale_fast)
-    line = run.run_cell(name, SEED, 0.5, False, "cpu", SMALL[name])
+    line = run.run_cell(name, SEED, 0.5, False, "cpu", _small(name))
     assert not line["correct"], line["checks"]
 
 
-@pytest.mark.parametrize("name", ["flac_cd.play", "aac_lc_radio.play"])
+@pytest.mark.parametrize("name", PLAYS)
 def test_a_broken_plug_in_comes_out_not_correct(name, monkeypatch):
     """A sample altered where the codec plug-in produces it."""
     from ohpipeline_tpu_torch.host.codecs.base import DecodedBatch
@@ -339,7 +361,7 @@ def test_a_broken_plug_in_comes_out_not_correct(name, monkeypatch):
         return out
 
     monkeypatch.setattr(DecodedBatch, "resolve", resolve)
-    line = run.run_cell(name, SEED, 0.5, False, "cpu", SMALL[name])
+    line = run.run_cell(name, SEED, 0.5, False, "cpu", _small(name))
     assert not line["correct"], line["checks"]
 
 
@@ -354,6 +376,10 @@ def test_entry_on_the_card(name):
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    line = run.run_cell(name, SEED, 1.0, True, "cuda", SMALL[name])
+    line = run.run_cell(name, SEED, 1.0, True, "cuda", _small(name))
     assert line["correct"], line["checks"]
     assert line["device"]["busy_s"] > 0
+    # every metric that reads the port's spans or counters finds them
+    assert {m["name"] for m in run.cell_metrics(BENCH, name, True)
+            if m["source"] in ("program_span", "program_counter")} \
+        <= set(line["metrics"])
