@@ -52,6 +52,7 @@ import torch
 from ... import _kernels
 from ..._host import aac_sbr as SBR
 from ..._host import aac_sbr_jax as SJ
+from ...tracing import count, nbytes, span
 from . import synthesis as SYN
 
 MAXE, NSL = SJ.MAXE, SJ.NSL
@@ -307,8 +308,11 @@ def envelope_inputs(static: SbrStatic, pcm, cond: dict, state: dict):
     a0r, a0i, a1r, a1i = (torch.where(big, 0.0, a)
                           for a in (a0r, a0i, a1r, a1i))
 
-    # chirped 2nd-order patch of each patched band's source column; low
-    # bands pass through, unpatched high bands are zero
+    # chirped 2nd-order patch of each patched band's source column, in the
+    # slots the frame's envelopes cover (env_id >= 0), as the host chain
+    # patches them; elsewhere, and in low bands, the analysis passes
+    # through (unpatched high bands are zero).  A tail slot no envelope
+    # covers reaches the output so where the next frame starts past it
     src = k["src"]
     bwk = cond["bwk"]                                       # (C, F, 64)
     sa0r = a0r[..., src] * bwk
@@ -325,8 +329,9 @@ def envelope_inputs(static: SbrStatic, pcm, cond: dict, state: dict):
     hfi = x0si + (c0r * x1si + c0i * x1sr) + (c1r * x2si + c1i * x2sr)
     low_r = torch.nn.functional.pad(Bre, (0, 32))
     low_i = torch.nn.functional.pad(Bim, (0, 32))
-    Er = torch.where(k["is_patch"], hfr, low_r)[..., kx:kx + M]
-    Ei = torch.where(k["is_patch"], hfi, low_i)[..., kx:kx + M]
+    patched = k["is_patch"] & (cond["env_id"] >= 0)[..., None]
+    Er = torch.where(patched, hfr, low_r)[..., kx:kx + M]
+    Ei = torch.where(patched, hfi, low_i)[..., kx:kx + M]
 
     # ---- the compact cond wire expanded to per-bin planes ---------------
     mapL, mapH, mapN = k["map_low"], k["map_high"], k["map_noise"]
@@ -498,7 +503,8 @@ class SbrDeviceRunner:
     (:meth:`decode_group` for one channel, :meth:`decode_group_multi` for
     all).  Channel ``ch``'s SBR state is row ``ch`` of the runner's state
     on every wire.  Parsing, dequantisation and the cond build stay on the
-    host."""
+    host; the cond build is the span ``sbr.cond``, and the serving wire
+    counts its upload (``h2d_bytes.sbr.cond``)."""
 
     def __init__(self, dec: SBR.SbrDecoder, nch: int = 2, *, device="cuda"):
         self.dec = dec
@@ -519,19 +525,20 @@ class SbrDeviceRunner:
         """Every channel's cond filled straight into (C, ...) stacked numpy
         arrays; per_ch[c] = (datas, Es, Qs), empty for a dead channel,
         whose frames then stay inactive."""
-        proto = vars(SbrFrameCond(F, self.static))
-        # the prototype's defaults: env_id/prev_id -1 means unassigned
-        stacked = {k: np.broadcast_to(v, (nch,) + v.shape).copy()
-                   for k, v in proto.items()}
-        for ch in range(nch):
-            view = SbrFrameCond.__new__(SbrFrameCond)
-            for k in proto:
-                setattr(view, k, stacked[k][ch])
-            datas, Es, Qs = per_ch[ch]
-            build_frame_cond(self.dec, self.state_host[ch], self.static,
-                             datas, Es, Qs, self.first[ch], cond=view)
-            self.first[ch] = False
-        return stacked
+        with span("sbr.cond"):
+            proto = vars(SbrFrameCond(F, self.static))
+            # the prototype's defaults: env_id/prev_id -1 means unassigned
+            stacked = {k: np.broadcast_to(v, (nch,) + v.shape).copy()
+                       for k, v in proto.items()}
+            for ch in range(nch):
+                view = SbrFrameCond.__new__(SbrFrameCond)
+                for k in proto:
+                    setattr(view, k, stacked[k][ch])
+                datas, Es, Qs = per_ch[ch]
+                build_frame_cond(self.dec, self.state_host[ch], self.static,
+                                 datas, Es, Qs, self.first[ch], cond=view)
+                self.first[ch] = False
+            return stacked
 
     def decode_group(self, ch: int, pcm_frames: np.ndarray, datas: list,
                      Es: list, Qs: list) -> np.ndarray:
@@ -580,6 +587,7 @@ class SbrDeviceRunner:
         F = planes["q4"].shape[0]
         cond = cond_to_device(self._build_stacked_cond(len(per_ch), F,
                                                        per_ch), self.device)
+        count("h2d_bytes.sbr.cond", nbytes(*cond.values()))
         pcm, self._core_ov = SYN.decode_planes(planes, self._core_ov, consts)
         out, self._stacked = device_decode_group(
             self.static, pcm.transpose(0, 1), cond, self._stacked)

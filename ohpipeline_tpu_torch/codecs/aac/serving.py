@@ -28,8 +28,9 @@ padded with row -1.
 HE-AAC v1 rides the same wire: the core's planes come from
 ``native.aac_parse_group_sbr``, which also hands back each frame's SBR
 payload; the host parses and dequantises the payloads per stream
-(``sbr.py``'s ``SbrDecoder``) and builds the SBR cond planes, and one device
-pass (``sbr.SbrDeviceRunner``) runs the LC core and the SBR group of every
+(``sbr.py``'s ``SbrDecoder``; span ``sbr.parse`` inside ``serve.parse``,
+counter ``frames.sbr``) and builds the SBR cond planes, and one device pass
+(``sbr.SbrDeviceRunner``) runs the LC core and the SBR group of every
 stream's channels.
 
 The host parses group g + 1 while the device runs group g; its PCM is
@@ -291,6 +292,7 @@ def _sbr_frames(dec, s: int, payloads: list, nch: int, hdr0,
             datas.append(chans[c])
             Es.append(EQ[c][0])
             Qs.append(EQ[c][1])
+    count("frames.sbr", len(payloads))
 
 
 def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
@@ -334,10 +336,11 @@ def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
             # inactive and their output is cut off in collect()
             per_ch: list = [([], [], [])
                             for _ in range((blk.stop - blk.start) * nch)]
-            for (s, n), payloads in zip(counts, planes["sbr"]):
-                g = blk.start + s
-                _sbr_frames(decs[g], g, payloads, nch, hdr0,
-                            per_ch[s * nch:(s + 1) * nch])
+            with span("sbr.parse"):
+                for (s, n), payloads in zip(counts, planes["sbr"]):
+                    g = blk.start + s
+                    _sbr_frames(decs[g], g, payloads, nch, hdr0,
+                                per_ch[s * nch:(s + 1) * nch])
             yield planes, counts, per_ch
 
     def launch(i, item):

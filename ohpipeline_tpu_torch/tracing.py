@@ -58,8 +58,10 @@ from . import _kernels
 #: ``span(..., request=NEW)`` starts a new request id ("call.<n>").
 NEW = object()
 #: The spans that open a profiler twin: host work with no device work
-#: inside (a group's parse, the assembly, the animator's pull).
-TWINS = frozenset({"serve.parse", "serve.assemble", "render.pull"})
+#: inside (a group's parse, the assembly, the animator's pull, the HE-AAC
+#: SBR cond build).
+TWINS = frozenset({"serve.parse", "serve.assemble", "render.pull",
+                   "sbr.cond"})
 
 _recording: "Recording | None" = None
 _local = threading.local()

@@ -71,9 +71,21 @@ def test_he_serving_matches_jax_serving():
         assert _lsb(got, w) <= 2
 
 
-def test_he_serving_matches_numpy_sbr_chain(monkeypatch):
-    """Stream 0 (the whole asset, 3 groups of 16 frames) against
-    SbrDecoder.process_frame fed the core PCM the port decoded."""
+def _joined():
+    """Frames 20-29 of the asset, then frames 10-19: frame 29's envelopes
+    end at the frame's end and frame 10's start one time slot into it, so
+    the QMF slots between them belong to no envelope.  The host chain
+    outputs them as the analysis left them (nothing patched above the
+    crossover); an encoder tiles its frames' borders, so only a stream
+    joined at a header frame, as a relay switching sources makes, has
+    such slots."""
+    off = _offsets()
+    return DATA[off[20]:off[30]] + DATA[off[10]:off[20]]
+
+
+def _against_numpy_sbr_chain(data: bytes, frames: int, monkeypatch):
+    """The port's serving call on one stream, in groups of 16 frames,
+    against SbrDecoder.process_frame fed the core PCM the port decoded."""
     seen = []
     group = sbrd.device_decode_group
 
@@ -83,14 +95,14 @@ def test_he_serving_matches_numpy_sbr_chain(monkeypatch):
         return out, new_state
 
     monkeypatch.setattr(sbrd, "device_decode_group", record)
-    pcm16, = decode_he_streams_device([DATA], frames_per_group=16,
+    pcm16, = decode_he_streams_device([data], frames_per_group=16,
                                       device="cpu")
     core = np.concatenate([p for p, _ in seen], axis=1)     # (2, F, 1024)
     got = np.concatenate([o for _, o in seen], axis=1)
     n, _, b = _host.aac_native().aac_parse_group_sbr(
-        DATA, 0, channels=NCH, max_frames=64)
+        data, 0, channels=NCH, max_frames=64)
     dec = _host.aac_sbr.SbrDecoder(
-        _host.aac_bitstream.parse_adts_header(DATA).sample_rate)
+        _host.aac_bitstream.parse_adts_header(data).sample_rate)
     ref = []
     for f in range(n):
         payload, nbits, crc = b["sbr"][f]
@@ -99,7 +111,7 @@ def test_he_serving_matches_numpy_sbr_chain(monkeypatch):
         ref.append(dec.process_frame(core[:, f].astype(np.float64), chans,
                                      coupling))
     ref = np.concatenate(ref, axis=1)
-    assert n == 46 and ref.shape == pcm16.shape
+    assert n == frames and ref.shape == pcm16.shape
     err = got[:, :ref.shape[1]] - ref
     peak = max(np.abs(ref).max(), 1.0)
     assert np.abs(err).max() / peak < 2e-3
@@ -108,6 +120,17 @@ def test_he_serving_matches_numpy_sbr_chain(monkeypatch):
     np.testing.assert_array_equal(
         pcm16, np.clip(np.rint(got[:, :ref.shape[1]]), -32768,
                        32767).astype(np.int32))
+
+
+def test_he_serving_matches_numpy_sbr_chain(monkeypatch):
+    """Stream 0 (the whole asset, 3 groups of 16 frames)."""
+    _against_numpy_sbr_chain(DATA, 46, monkeypatch)
+
+
+def test_he_serving_matches_numpy_sbr_chain_across_a_join(monkeypatch):
+    """Two segments of the asset joined with QMF slots between their
+    envelopes (2 groups)."""
+    _against_numpy_sbr_chain(_joined(), 20, monkeypatch)
 
 
 def test_native_sbr_parse_is_taken(monkeypatch):

@@ -197,16 +197,33 @@ def test_envelope_scan_torch_matches_jax_frame_step_on_worst_case(
             assert _peak_err(g[c:c + 1], w[None]) <= 1e-6, name
 
 
+def _unpatched(static, X, F):
+    """The (C, F, 38, M) SBR bins of the 38-slot windows of a low-band
+    slot timeline X (C, 6 + F*32, 32), unpatched: the analysis below band
+    32, zeros above."""
+    idx = torch.arange(F)[:, None] * 32 + torch.arange(sbrd.NSL)
+    low = torch.nn.functional.pad(X[:, idx], (0, 32))
+    return low[..., static.kx:static.kx + static.M]
+
+
 def test_envelope_inputs_match_jax_scan_inputs(real, monkeypatch):
     """The port's envelope adjustment and regenerated noise and sine
-    planes against the planes the JAX program feeds its scan."""
+    planes against the planes the JAX program feeds its scan.  The JAX
+    program patches every slot of a frame; the port patches the slots the
+    frame's envelopes cover, as the host chain does, and leaves the others
+    as the analysis made them."""
     (groups, runner) = real
     pcm, cond = groups[0]
     state = sbrd.device_init_state(runner.static.M)
-    args, _, _ = sbrd.envelope_inputs(
+    args, (Xre, Xim), _ = sbrd.envelope_inputs(
         runner.static, pcm, sbrd.cond_to_device(cond, "cpu"),
         sbrd.state_to_device([state] * NCH, "cpu"))
     args = sbrd.plane_args(*args)
+    active = (args[4] >= 0)[..., None]                  # env_id >= 0
+    assert active.any() and not active.all()
+    F = pcm.shape[1]
+    raw = {"er": _unpatched(runner.static, Xre, F),
+           "ei": _unpatched(runner.static, Xim, F)}
     names = ("gain", "noise", "sine", "sine_bins", "env_id", "prev_id",
              "last_env", "r", "carry_mask", "nre", "nim", "sre", "sim", "er",
              "ei")
@@ -220,7 +237,12 @@ def test_envelope_inputs_match_jax_scan_inputs(real, monkeypatch):
             if name in ("gain", "noise", "sine"):
                 torch.testing.assert_close(g, w, rtol=1e-3, atol=0)
             elif name in ("er", "ei"):
-                assert _peak_err(g, w) <= 5e-4, name
+                act = active[c:c + 1]
+                assert _peak_err(torch.where(act, g, 0.0),
+                                 torch.where(act, w, 0.0)) <= 5e-4, name
+                assert torch.equal(torch.where(act, 0.0, g),
+                                   torch.where(act, 0.0, raw[name][c:c + 1])
+                                   ), name
             else:
                 assert torch.equal(g, w), name
 
@@ -228,7 +250,14 @@ def test_envelope_inputs_match_jax_scan_inputs(real, monkeypatch):
 def test_device_decode_group_matches_jax_over_chained_groups(real):
     """Three chained groups: every carried state (analysis history, slot
     history, LPC prehistory, tail, filt, synthesis overlap) crosses two
-    group boundaries."""
+    group boundaries.  A slot no envelope covers holds the analysis
+    unpatched in the port (as in the host chain) and the patch in the JAX
+    program: a tail slot past the last frame's last border, which the next
+    frame patches anew wherever its first border lies before it, and every
+    slot of the frames past the stream's end that pad its last group,
+    whose output the serving call cuts off.  So the output is compared on
+    the stream's frames, and every carried state after every group, the
+    tail on the slots an envelope covers and the analysis elsewhere."""
     import jax.numpy as jnp
 
     from ohpipeline_tpu.codecs.aac import sbr_jax
@@ -246,10 +275,25 @@ def test_device_decode_group_matches_jax_over_chained_groups(real):
             want, jstates[c] = fn(jnp.asarray(pcm[c].numpy()),
                                   {k: jnp.asarray(v[c])
                                    for k, v in cond.items()}, jstates[c])
-            assert _peak_err(out[c:c + 1], np.asarray(want)[None]) <= 2e-5
+            live = (cond["env_id"][c] >= 0).any(-1)     # (F,) frames
+            got = out[c].reshape(len(live), -1)[live]
+            assert _peak_err(got[None], np.asarray(want).reshape(
+                len(live), -1)[live][None]) <= 2e-5
+            # tail slot s is the last frame's slot 32 + s
+            act = torch.from_numpy(cond["env_id"][c, -1, 32:] >= 0)[:, None]
             for key, val in jstates[c].items():
-                assert _peak_err(state[key][c:c + 1],
-                                 np.asarray(val)[None]) <= 5e-4, key
+                got, want = state[key][c:c + 1], torch.from_numpy(
+                    np.array(val)[None])
+                if key in ("tail_r", "tail_i"):
+                    x = state["x_hist_re" if key == "tail_r"
+                              else "x_hist_im"][c:c + 1]
+                    raw = torch.nn.functional.pad(x, (0, 32))[
+                        ..., static.kx:static.kx + static.M]
+                    assert torch.equal(torch.where(act, 0.0, got),
+                                       torch.where(act, 0.0, raw)), key
+                    got, want = (torch.where(act, t, 0.0)
+                                 for t in (got, want))
+                assert _peak_err(got, want) <= 5e-4, key
 
 
 def test_synthesize_slots_matches_jax():

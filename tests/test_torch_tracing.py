@@ -252,6 +252,42 @@ def test_the_byte_counters_are_the_tensors_handed_over(check):
     check()
 
 
+def _he_streams() -> list:
+    """Two HE-AAC v1 streams: ``dryrun_he.aac`` whole, and from its frame
+    10 (an SBR header frame) on."""
+    data = open(ASSETS + "/dryrun_he.aac", "rb").read()
+    pos = 0
+    for _ in range(10):
+        pos += _host.aac_bitstream.parse_adts_header(data, pos).frame_bytes
+    return [data, data[pos:]]
+
+
+def test_he_serving_records_the_sbr_parse_and_cond_build():
+    """The HE-AAC serving call's SBR chain: ``sbr.parse`` inside each
+    group's ``serve.parse``, ``sbr.cond`` on every launch, a frame counted
+    for every SBR payload parsed, the cond planes' upload counted; and the
+    recording changes no sample."""
+    streams = _he_streams()
+    off = aac_serving.decode_he_streams_device(streams, 16, device="cpu")
+    with tracing.recording() as rec:
+        on = aac_serving.decode_he_streams_device(streams, 16, device="cpu")
+    for a, b in zip(on, off):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    by_id = {s["id"]: s for s in rec.spans}
+    parses = [s for s in rec.spans if s["name"] == "sbr.parse"]
+    groups = sum(s["name"] == "serve.launch" for s in rec.spans)
+    assert len(parses) == groups == 3
+    assert all(by_id[s["parent"]]["name"] == "serve.parse" for s in parses)
+    conds = [s for s in rec.spans if s["name"] == "sbr.cond"]
+    assert len(conds) == groups
+    assert all(by_id[s["parent"]]["name"] == "serve.launch" for s in conds)
+    frames = sum(o.shape[1] for o in on) // 2048
+    assert frames == 46 + 36
+    assert rec.counters["frames.sbr"] == frames
+    assert rec.counters["h2d_bytes.sbr.cond"] > 0
+
+
 def _profiled_serving_loop() -> list:
     """The names of the profiler's events of a two-group serving loop run
     on a profiled thread outside a recording."""
@@ -275,7 +311,8 @@ def test_outside_a_recording_a_profiled_thread_sees_the_spans_as_host_ops():
     names = _profiled_serving_loop()
     assert [n for n in names if n.startswith("serve.")] == [
         "serve.parse", "serve.parse", "serve.parse", "serve.assemble"]
-    assert tracing.TWINS == {"serve.parse", "serve.assemble", "render.pull"}
+    assert tracing.TWINS == {"serve.parse", "serve.assemble", "render.pull",
+                             "sbr.cond"}
 
 
 @pytest.mark.gpu
