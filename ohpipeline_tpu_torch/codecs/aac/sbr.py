@@ -504,7 +504,10 @@ class SbrDeviceRunner:
     all).  Channel ``ch``'s SBR state is row ``ch`` of the runner's state
     on every wire.  Parsing, dequantisation and the cond build stay on the
     host; the cond build is the span ``sbr.cond``, and the serving wire
-    counts its upload (``h2d_bytes.sbr.cond``)."""
+    counts its upload (``h2d_bytes.sbr.cond``).  The zigzag wire builds
+    the cond with the serving call's native chain (``sbr_chain``) and
+    keeps its channels' host state as arrays (``cond_state``) in place of
+    ``state_host`` and ``first``: a runner serves one wire."""
 
     def __init__(self, dec: SBR.SbrDecoder, nch: int = 2, *, device="cuda"):
         self.dec = dec
@@ -520,6 +523,9 @@ class SbrDeviceRunner:
         # spec mode: True while the host holds the live core overlap (before
         # the first spec group, and after fetch_core_overlap handed it back)
         self._host_ov = True
+        # the zigzag wire's host state as arrays (sbr_chain.CondState),
+        # made at its first native group from state_host and first
+        self.cond_state = None
 
     def _build_stacked_cond(self, nch: int, F: int, per_ch: list) -> dict:
         """Every channel's cond filled straight into (C, ...) stacked numpy
@@ -578,15 +584,15 @@ class SbrDeviceRunner:
         """:meth:`decode_group_multi_lazy`, copied back at once."""
         return self.decode_group_multi_lazy(pcm_frames, per_ch)()
 
-    def decode_group_multi_zz(self, planes: dict, per_ch: list, consts):
+    def decode_group_multi_zz(self, planes: dict, group, consts):
         """One group: ``planes`` the LC core's zigzag wire as tensors on the
-        device (``synthesis.decode_planes``' keys), ``per_ch`` the SBR
-        frames per channel, ``consts`` ``synthesis.device_constants``.
-        Returns the (C, F*2048) int16 PCM on the device, rounded half to
-        even and clipped; nothing is copied back."""
+        device (``synthesis.decode_planes``' keys), ``group`` the SBR frames
+        of its channels (``sbr_chain.SbrGroup``, whose ``cond`` builds the
+        cond planes), ``consts`` ``synthesis.device_constants``.  Returns
+        the (C, F*2048) int16 PCM on the device, rounded half to even and
+        clipped; nothing is copied back."""
         F = planes["q4"].shape[0]
-        cond = cond_to_device(self._build_stacked_cond(len(per_ch), F,
-                                                       per_ch), self.device)
+        cond = cond_to_device(group.cond(self, F), self.device)
         count("h2d_bytes.sbr.cond", nbytes(*cond.values()))
         pcm, self._core_ov = SYN.decode_planes(planes, self._core_ov, consts)
         out, self._stacked = device_decode_group(

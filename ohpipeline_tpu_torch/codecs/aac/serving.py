@@ -26,12 +26,15 @@ entries before it and its window shapes restored (counter
 padded with row -1.
 
 HE-AAC v1 rides the same wire: the core's planes come from
-``native.aac_parse_group_sbr``, which also hands back each frame's SBR
-payload; the host parses and dequantises the payloads per stream
-(``sbr.py``'s ``SbrDecoder``; span ``sbr.parse`` inside ``serve.parse``,
-counter ``frames.sbr``) and builds the SBR cond planes, and one device pass
-(``sbr.SbrDeviceRunner``) runs the LC core and the SBR group of every
-stream's channels.
+``native.aac_parse_group_sbr``, which also captures each frame's SBR
+payload; the host SBR chain (``sbr_chain``: native, a stream's group a
+call, over dense arrays) parses and dequantises the payloads per stream
+(span ``sbr.parse`` inside ``serve.parse``, counter ``frames.sbr``) and
+builds the SBR cond planes at launch (span ``sbr.cond``), and one device
+pass (``sbr.SbrDeviceRunner``) runs the LC core and the SBR group of every
+stream's channels.  A stream's group the native chain declines runs
+through the Python chain (:func:`_sbr_frames`, ``build_frame_cond``),
+counted by ``fallback.sbr``.
 
 The host parses group g + 1 while the device runs group g; its PCM is
 rounded on the device and copied back after the next group is queued.  No
@@ -52,6 +55,8 @@ parsed and launched on every block before group g - 1 is collected;
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -61,6 +66,7 @@ from ..._host import aac_sbr as SBR
 from ...tracing import NEW, count, nbytes, span
 from . import sbr as SBRD
 from . import synthesis as SYN
+from .sbr_chain import SbrChain, SbrPayloads
 from .synthesis import decode_planes
 
 
@@ -131,13 +137,15 @@ def iter_groups(streams: list, frames_per_group: int = 64, *,
     ``(stream, nframes)`` for every stream still live in the group.
     Columns of stream s are s * channels ... (s + 1) * channels - 1.  With
     ``sbr`` the streams are HE-AAC: planes["sbr"] then lists, in the order
-    of ``counts``, each stream's (payload, nbits, crc) or None per frame.
-    Every yielded array is the group's own."""
+    of ``counts``, each stream's ``sbr_chain.SbrPayloads``: its frames'
+    captured payload planes, which give the (payload, nbits, crc) or None
+    of a frame when indexed.  Every yielded array is the group's own."""
     native = aac_native()
     nch, ri = _header(streams)
     S, G = len(streams), frames_per_group
     SC = S * nch
-    parse = native.aac_parse_group_sbr if sbr else native.aac_parse_group
+    parse = (functools.partial(native.aac_parse_group_sbr, payloads=False)
+             if sbr else native.aac_parse_group)
     ecap, scap, tcap = _start_caps(G * SC)
     lists = [native.EscapeList(ecap), native.ShortSfPool(scap),
              native.TnsPool(tcap)]
@@ -162,9 +170,10 @@ def iter_groups(streams: list, frames_per_group: int = 64, *,
             live[s] = n == G
             counts.append((s, n))
             if sbr:
-                # a new list of new bytes objects per parse: the next
-                # stream's parse reuses pbuf's arrays but not these
-                payloads.append(pbuf["sbr"])
+                # copies: the next stream's parse reuses pbuf's arrays
+                payloads.append(SbrPayloads(pbuf["_sbr_bytes"][:n].copy(),
+                                            pbuf["_sbr_nbits"][:n].copy(),
+                                            pbuf["_sbr_crc"][:n].copy()))
             if n == 0:
                 continue
             before = [lst.count.value for lst in lists]
@@ -262,11 +271,13 @@ def decode_aac_streams_device(streams: list, frames_per_group: int = 64, *,
         return assemble(outs, nch)
 
 
-def _sbr_frames(dec, s: int, payloads: list, nch: int, hdr0,
+def _sbr_frames(dec, s: int, payloads, nch: int, hdr0,
                 per_ch: list) -> None:
-    """Parse and dequantise stream ``s``'s SBR payloads of one group with
-    its decoder ``dec``, appending each frame's channel data and envelope
-    and noise levels to per_ch[c] = (datas, Es, Qs), c < nch."""
+    """Parse and dequantise stream ``s``'s SBR payloads of one group (the
+    (payload, nbits, crc) or None of each frame) with its decoder ``dec``,
+    appending each frame's channel data and envelope and noise levels to
+    per_ch[c] = (datas, Es, Qs), c < nch: the Python chain's parse half,
+    the oracle of ``sbr_chain`` and its fallback."""
     for pl in payloads:
         if pl is None:
             raise ValueError("frame without SBR payload")
@@ -314,6 +325,7 @@ def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
     consts = [SYN.device_constants(ri, device=dev) for dev, _ in shards]
     sbr_native()
     decs = [SBR.SbrDecoder(rate) for _ in streams]
+    chain = SbrChain(decs, nch, _sbr_frames)
     runners: list = []
     hdr0 = None
     outs: list[list[np.ndarray]] = [[] for _ in streams]
@@ -328,20 +340,17 @@ def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
 
     def parsed(i: int):
         """Block i's groups, with its streams' SBR payloads parsed and
-        dequantised: (planes, counts, per_ch)."""
+        dequantised: (planes, counts, sbr_chain.SbrGroup)."""
         blk = shards[i][1]
         for planes, counts in iter_groups(streams[blk], frames_per_group,
                                           sbr=True):
-            # dead or short channels keep empty lists: their frames stay
-            # inactive and their output is cut off in collect()
-            per_ch: list = [([], [], [])
-                            for _ in range((blk.stop - blk.start) * nch)]
+            # dead or short channels have no frames: they stay inactive
+            # and their output is cut off in collect()
             with span("sbr.parse"):
-                for (s, n), payloads in zip(counts, planes["sbr"]):
-                    g = blk.start + s
-                    _sbr_frames(decs[g], g, payloads, nch, hdr0,
-                                per_ch[s * nch:(s + 1) * nch])
-            yield planes, counts, per_ch
+                group = chain.parse_group(
+                    blk.start, counts, planes["sbr"],
+                    (blk.stop - blk.start) * nch, frames_per_group, hdr0)
+            yield planes, counts, group
 
     def launch(i, item):
         nonlocal hdr0
@@ -353,13 +362,14 @@ def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
             hdr0 = decs[lead].header
             if any(d.header is not None and d.header != hdr0 for d in decs):
                 raise ValueError("device batch needs one SBR header config")
+            chain.set_header(hdr0, decs[lead].ft)
             runners.extend(SBRD.SbrDeviceRunner(
                 decs[lead], (blk.stop - blk.start) * nch, device=dev)
                 for dev, blk in shards)
-        planes, counts, per_ch = item
+        planes, counts, group = item
         dev, blk = shards[i]
         pcm16 = runners[i].decode_group_multi_zz(_upload(planes, dev),
-                                                 per_ch, consts[i])
+                                                 group, consts[i])
         return pcm16, blk.start, counts
 
     with span("serve.call", request=NEW, codec="he_aac",

@@ -40,15 +40,17 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def _load(name: str, sources: list[str],
-          flags: list[str] | None = None) -> ctypes.CDLL:
-    """Compile (once per content) and dlopen a helper library."""
+          flags: list[str] | None = None,
+          includes: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Compile (once per content) and dlopen a helper library.
+    ``includes`` are files the sources include: hashed, not compiled."""
     with _LOCK:
         if name in _LIBS:
             return _LIBS[name]
         cmd = [*_CXX, *(flags or [])]
         srcs = [_DIR / s for s in sources]
         digest = hashlib.sha1(" ".join(cmd).encode())
-        for s in srcs:
+        for s in [*srcs, *(_DIR / i for i in includes)]:
             digest.update(s.name.encode() + b"\0" + s.read_bytes())
         so = _BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
         if not so.exists():
@@ -277,12 +279,15 @@ SBR_STRIDE = 272  # must match aac_unpack.cc (max FIL payload 269 bytes)
 
 
 def aac_parse_group_sbr(buf: bytes, byte_pos: int, *, channels: int,
-                        max_frames: int, out: dict = None):
+                        max_frames: int, out: dict = None,
+                        payloads: bool = True):
     """aac_parse_group that also captures EXT_SBR_DATA(_CRC) fill
     payloads: batch gains ``sbr`` = list of (payload_bytes, nbits, crc)
     or None per frame, the exact triple bitstream.parse_raw_data_block
     produces (HE-AAC path; reference CAacDecoder_DecodeFrame feeds the
-    same fill payloads to libSBRdec)."""
+    same fill payloads to libSBRdec).  With ``payloads`` False ``sbr`` is
+    None and the payloads stay in the ``_sbr_bytes`` / ``_sbr_nbits`` /
+    ``_sbr_crc`` planes alone."""
     lib = _aac_lib()
     if lib is None:
         raise RuntimeError("native aac unpacker unavailable")
@@ -316,7 +321,7 @@ def aac_parse_group_sbr(buf: bytes, byte_pos: int, *, channels: int,
     sbr = [(sbr_bytes[f, :(int(sbr_nbits[f]) + 7) // 8].tobytes(),
             int(sbr_nbits[f]), bool(sbr_crc[f]))
            if sbr_nbits[f] > 0 else None
-           for f in range(n)]
+           for f in range(n)] if payloads else None
     batch = dict(ics=ics, cb=cb, sf=sf, quant=quant, msmask=msmask,
                  tnsn=tnsn, tnsp=tnsp, tnsc=tnsc,
                  rate_index=int(rate_index[0]), sbr=sbr,
@@ -713,8 +718,16 @@ _SBR_MAXENV, _SBR_MAXB, _SBR_MAXQ = 5, 64, 8
 _sbr_books_keep: list = []      # keep injected arrays alive
 
 
+#: Integer levels the dequantisation tables of the SBR chain cover:
+#: [-_SBR_LEVELS, _SBR_LEVELS); a payload with a level outside falls back.
+_SBR_LEVELS = 512
+
+
 def _sbr_lib() -> ctypes.CDLL | None:
-    lib = _load("sbrparse", ["sbr_parse.cc"])
+    # sbr_chain.cc includes sbr_parse.cc: one library for the payload
+    # parser and the serving call's chain
+    lib = _load("sbrparse", ["sbr_chain.cc"], flags=["-ffp-contract=off"],
+                includes=("sbr_parse.cc",))
     if lib is None:
         return None
     if not getattr(lib, "_sigs_set", False):
@@ -735,8 +748,50 @@ def _sbr_lib() -> ctypes.CDLL | None:
             tree = np.ascontiguousarray(T[name].astype(np.int32))
             _sbr_books_keep.append(tree)
             lib.sbr_set_book(i, tree, tree.shape[0])
+        _sbr_chain_setup(lib)
         lib._sigs_set = True
     return lib
+
+
+def _sbr_chain_setup(lib) -> None:
+    """The chain's signatures, and its exp2 tables filled by numpy, the way
+    sbr.py's ``dequant`` and ``unmap_coupled`` compute each level."""
+    from ..codecs.aac.sbr import ENERGY_CAL
+    _f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    lib.sbr_chain_set_tables.argtypes = [_f64] * 6 + [ctypes.c_int]
+    lib.sbr_chain_parse.restype = ctypes.c_int
+    lib.sbr_chain_parse.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+    lib.sbr_chain_cond.restype = None
+    lib.sbr_chain_cond.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
+        + [ctypes.c_int] + [ctypes.c_void_p] * 13)
+    v = np.arange(-_SBR_LEVELS, _SBR_LEVELS, dtype=np.float64)
+    tabs = [np.exp2(v / 1.0) * (64.0 * ENERGY_CAL),
+            np.exp2(v / 2.0) * (64.0 * ENERGY_CAL),
+            np.exp2(6.0 - v),
+            np.exp2(v / 1.0 - 12.0), np.exp2(v / 2.0 - 12.0),
+            np.exp2(v - 12.0)]
+    _sbr_books_keep.extend(tabs)
+    lib.sbr_chain_set_tables(*tabs, _SBR_LEVELS)
+
+
+#: Ints of one stream's delta-coding state in the SBR chain
+#: (sbr_chain.cc's P_SIZE): env rows, their lengths, freq_res, noise
+#: rows, noise present, per channel.
+SBR_CHAIN_STATE = 2 * _SBR_MAXB + 2 + 2 + 2 * _SBR_MAXQ + 2
+
+
+def sbr_chain_lib() -> ctypes.CDLL | None:
+    """The library holding the HE serving call's SBR chain
+    (``sbr_chain_parse``, ``sbr_chain_cond``), set up; the port's chain
+    (``codecs.aac.sbr_chain``) runs the Python chain where this is None."""
+    return _sbr_lib()
 
 
 def have_sbr_parse() -> bool:
