@@ -95,6 +95,24 @@ def cond_to_device(stacked: dict, device) -> dict:
             for k, v in stacked.items()}
 
 
+class ChannelCond:
+    """A group's stacked (C, ...) ``SbrFrameCond`` planes (``planes``),
+    sliced and joined along the channel axis as a list of channels is."""
+
+    def __init__(self, planes: dict):
+        self.planes = planes
+
+    def __len__(self) -> int:
+        return len(self.planes["Erow"])
+
+    def __getitem__(self, rows: slice) -> "ChannelCond":
+        return ChannelCond({k: v[rows] for k, v in self.planes.items()})
+
+    def __add__(self, other: "ChannelCond") -> "ChannelCond":
+        return ChannelCond({k: np.concatenate([v, other.planes[k]])
+                            for k, v in self.planes.items()})
+
+
 def state_to_device(states: list, device) -> dict:
     """Per-channel ``device_init_state`` dicts -> (C, ...) stacked float32
     tensors on ``device``."""
@@ -504,10 +522,9 @@ class SbrDeviceRunner:
     all).  Channel ``ch``'s SBR state is row ``ch`` of the runner's state
     on every wire.  Parsing, dequantisation and the cond build stay on the
     host; the cond build is the span ``sbr.cond``, and the serving wire
-    counts its upload (``h2d_bytes.sbr.cond``).  The zigzag wire builds
-    the cond with the serving call's native chain (``sbr_chain``) and
-    keeps its channels' host state as arrays (``cond_state``) in place of
-    ``state_host`` and ``first``: a runner serves one wire."""
+    counts its upload (``h2d_bytes.sbr.cond``).  The zigzag wire takes the
+    cond planes its caller built; the other wires build them from
+    ``state_host`` and ``first``."""
 
     def __init__(self, dec: SBR.SbrDecoder, nch: int = 2, *, device="cuda"):
         self.dec = dec
@@ -523,9 +540,6 @@ class SbrDeviceRunner:
         # spec mode: True while the host holds the live core overlap (before
         # the first spec group, and after fetch_core_overlap handed it back)
         self._host_ov = True
-        # the zigzag wire's host state as arrays (sbr_chain.CondState),
-        # made at its first native group from state_host and first
-        self.cond_state = None
 
     def _build_stacked_cond(self, nch: int, F: int, per_ch: list) -> dict:
         """Every channel's cond filled straight into (C, ...) stacked numpy
@@ -584,15 +598,14 @@ class SbrDeviceRunner:
         """:meth:`decode_group_multi_lazy`, copied back at once."""
         return self.decode_group_multi_lazy(pcm_frames, per_ch)()
 
-    def decode_group_multi_zz(self, planes: dict, group, consts):
+    def decode_group_multi_zz(self, planes: dict, cond: ChannelCond, consts):
         """One group: ``planes`` the LC core's zigzag wire as tensors on the
-        device (``synthesis.decode_planes``' keys), ``group`` the SBR frames
-        of its channels (``sbr_chain.SbrGroup``, whose ``cond`` builds the
-        cond planes), ``consts`` ``synthesis.device_constants``.  Returns
-        the (C, F*2048) int16 PCM on the device, rounded half to even and
-        clipped; nothing is copied back."""
-        F = planes["q4"].shape[0]
-        cond = cond_to_device(group.cond(self, F), self.device)
+        device (``synthesis.decode_planes``' keys), ``cond`` the stacked
+        numpy cond planes of its channels, ``consts``
+        ``synthesis.device_constants``.  Returns the (C, F*2048) int16 PCM
+        on the device, rounded half to even and clipped; nothing is copied
+        back."""
+        cond = cond_to_device(cond.planes, self.device)
         count("h2d_bytes.sbr.cond", nbytes(*cond.values()))
         pcm, self._core_ov = SYN.decode_planes(planes, self._core_ov, consts)
         out, self._stacked = device_decode_group(

@@ -32,9 +32,9 @@ call, over dense arrays) parses and dequantises the payloads per stream
 (span ``sbr.parse`` inside ``serve.parse``, counter ``frames.sbr``) and
 builds the SBR cond planes at launch (span ``sbr.cond``), and one device
 pass (``sbr.SbrDeviceRunner``) runs the LC core and the SBR group of every
-stream's channels.  A stream's group the native chain declines runs
-through the Python chain (:func:`_sbr_frames`, ``build_frame_cond``),
-counted by ``fallback.sbr``.
+stream's channels.  A stream's group the native chain declines raises
+``ValueError``, in the Python chain's words where that chain raises
+(``sbr_chain.sbr_frames``).
 
 The host parses group g + 1 while the device runs group g; its PCM is
 rounded on the device and copied back after the next group is queued.  No
@@ -46,11 +46,12 @@ default, and naming another raises) the streams split into contiguous
 blocks, one a dp row, each served on its row's first device by its own
 ``iter_groups``, overlap and (HE) ``SbrDeviceRunner``, whose state rows are
 its block's channels: a block's wire is self-consistent, so no global row
-(``epak``, ``srow``, ``trow``) is rebased.  The batch is validated over all
-the streams first (rate and channels, one SBR header, no PS), so ``mesh=``
-raises where ``mesh=None`` does.  The blocks advance in lockstep, group g
-parsed and launched on every block before group g - 1 is collected;
-``mesh=None`` is the one-block case of the same loop.
+(``epak``, ``srow``, ``trow``) is rebased.  The batch's rate and channels
+are validated over all the streams first, and every block's first group
+is parsed, its SBR headers held to the call's, before any launch, so
+``mesh=`` raises where ``mesh=None`` does.  The blocks advance in
+lockstep, group g parsed and launched on every block before group g - 1
+is collected; ``mesh=None`` is the one-block case of the same loop.
 """
 
 from __future__ import annotations
@@ -62,11 +63,10 @@ import torch
 
 from .._serving import assemble, serve_blocks, stream_blocks
 from ..._host import aac_bitstream, aac_native, sbr_native
-from ..._host import aac_sbr as SBR
 from ...tracing import NEW, count, nbytes, span
 from . import sbr as SBRD
 from . import synthesis as SYN
-from .sbr_chain import SbrChain, SbrPayloads
+from .sbr_chain import CondState, SbrChain, SbrPayloads
 from .synthesis import decode_planes
 
 
@@ -271,49 +271,16 @@ def decode_aac_streams_device(streams: list, frames_per_group: int = 64, *,
         return assemble(outs, nch)
 
 
-def _sbr_frames(dec, s: int, payloads, nch: int, hdr0,
-                per_ch: list) -> None:
-    """Parse and dequantise stream ``s``'s SBR payloads of one group (the
-    (payload, nbits, crc) or None of each frame) with its decoder ``dec``,
-    appending each frame's channel data and envelope and noise levels to
-    per_ch[c] = (datas, Es, Qs), c < nch: the Python chain's parse half,
-    the oracle of ``sbr_chain`` and its fallback."""
-    for pl in payloads:
-        if pl is None:
-            raise ValueError("frame without SBR payload")
-        payload, nbits, crc = pl
-        try:
-            chans, coupling = dec.parse_payload(payload, nbits,
-                                                stereo=(nch == 2), crc=crc)
-        except SBR.SbrError as e:
-            raise ValueError(f"stream {s}: {e}") from e
-        if hdr0 is not None and dec.header != hdr0:
-            raise ValueError("SBR header changed mid-stream")
-        if chans[0].ps is not None:
-            raise ValueError("PS (v2) stream: not served by this batch call")
-        EQ = [dec.dequant(dec.header, chans[i].grid, chans[i].env,
-                          chans[i].noise) for i in range(nch)]
-        if nch == 2 and coupling:
-            a = EQ[0][2]
-            (EL, QL), (ER, QR) = dec.unmap_coupled(
-                EQ[0][0], EQ[0][1], chans[1].env, chans[1].noise, a)
-            EQ = [(EL, QL, a), (ER, QR, a)]
-        for c in range(nch):
-            datas, Es, Qs = per_ch[c]
-            datas.append(chans[c])
-            Es.append(EQ[c][0])
-            Qs.append(EQ[c][1])
-    count("frames.sbr", len(payloads))
-
-
 def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
                              device="cuda", mesh=None) -> list[np.ndarray]:
     """streams: ADTS HE-AAC v1 files (bytes) sharing sample rate, channel
     count and SBR header configuration.  Every stream's channels ride one
     device pass per group (the LC core, then the SBR group on the
     ``S * channels`` channel axis).  Parametric-stereo (v2) streams, frames
-    without an SBR payload, SBR data before the first SBR header and a
-    header that changes mid-stream raise ``ValueError``.  Returns
+    without an SBR payload, SBR data before the first SBR header, a header
+    that changes mid-stream (also inside a stream's first group), and a
+    group whose envelope or noise levels leave the dequantisation tables'
+    range or whose grid has too few borders raise ``ValueError``.  Returns
     [(channels, nsamples) int32 PCM] per stream at twice the ADTS rate,
     rounded half to even and clipped to the int16 range.  The work runs on
     ``device``, or, with ``mesh``, on the first device of each of its dp
@@ -324,10 +291,9 @@ def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
     shards = stream_blocks(len(streams), mesh, device)
     consts = [SYN.device_constants(ri, device=dev) for dev, _ in shards]
     sbr_native()
-    decs = [SBR.SbrDecoder(rate) for _ in streams]
-    chain = SbrChain(decs, nch, _sbr_frames)
+    chain = SbrChain(len(streams), nch, rate)
     runners: list = []
-    hdr0 = None
+    states: list = []
     outs: list[list[np.ndarray]] = [[] for _ in streams]
 
     def collect(pcm16, s0, counts):             # (S*C, G*2048) int16
@@ -349,27 +315,24 @@ def decode_he_streams_device(streams: list, frames_per_group: int = 48, *,
             with span("sbr.parse"):
                 group = chain.parse_group(
                     blk.start, counts, planes["sbr"],
-                    (blk.stop - blk.start) * nch, frames_per_group, hdr0)
+                    (blk.stop - blk.start) * nch, frames_per_group)
             yield planes, counts, group
 
     def launch(i, item):
-        nonlocal hdr0
         if not runners:     # every block's first group is parsed by now
-            lead = next((s for s, d in enumerate(decs)
-                         if d.header is not None), None)
-            if lead is None:
+            if chain.header is None:
                 raise ValueError("no SBR header in any stream")
-            hdr0 = decs[lead].header
-            if any(d.header is not None and d.header != hdr0 for d in decs):
-                raise ValueError("device batch needs one SBR header config")
-            chain.set_header(hdr0, decs[lead].ft)
-            runners.extend(SBRD.SbrDeviceRunner(
-                decs[lead], (blk.stop - blk.start) * nch, device=dev)
-                for dev, blk in shards)
+            dec = chain.decoder()
+            for dev, blk in shards:
+                C = (blk.stop - blk.start) * nch
+                runners.append(SBRD.SbrDeviceRunner(dec, C, device=dev))
+                states.append(CondState(C))
         planes, counts, group = item
         dev, blk = shards[i]
-        pcm16 = runners[i].decode_group_multi_zz(_upload(planes, dev),
-                                                 group, consts[i])
+        runner = runners[i]
+        cond = SBRD.ChannelCond(group.cond(runner.static, states[i]))
+        pcm16 = runner.decode_group_multi_zz(_upload(planes, dev), cond,
+                                             consts[i])
         return pcm16, blk.start, counts
 
     with span("serve.call", request=NEW, codec="he_aac",

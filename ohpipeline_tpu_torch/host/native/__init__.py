@@ -719,7 +719,7 @@ _sbr_books_keep: list = []      # keep injected arrays alive
 
 
 #: Integer levels the dequantisation tables of the SBR chain cover:
-#: [-_SBR_LEVELS, _SBR_LEVELS); a payload with a level outside falls back.
+#: [-_SBR_LEVELS, _SBR_LEVELS); a payload with a level outside raises.
 _SBR_LEVELS = 512
 
 
@@ -787,10 +787,9 @@ def _sbr_chain_setup(lib) -> None:
 SBR_CHAIN_STATE = 2 * _SBR_MAXB + 2 + 2 + 2 * _SBR_MAXQ + 2
 
 
-def sbr_chain_lib() -> ctypes.CDLL | None:
+def sbr_chain_lib() -> ctypes.CDLL:
     """The library holding the HE serving call's SBR chain
-    (``sbr_chain_parse``, ``sbr_chain_cond``), set up; the port's chain
-    (``codecs.aac.sbr_chain``) runs the Python chain where this is None."""
+    (``sbr_chain_parse``, ``sbr_chain_cond``), set up."""
     return _sbr_lib()
 
 

@@ -10,11 +10,11 @@
 // state carried in arrays, and the envelope and noise levels dequantised
 // in float64, with the channel-pair unmapping when coupling is set.
 // Mirrors sbr.py's SbrDecoder.parse_payload, dequant and unmap_coupled
-// as serving._sbr_frames chains them; the exponentials are looked up in
+// as sbr_chain.sbr_frames chains them; the exponentials are looked up in
 // tables the loader fills with numpy's exp2, so every level is the one
 // the numpy chain computes.  It declines (returns 0, nothing committed)
 // wherever that chain would raise or take another path: the caller then
-// runs the stream's group through the Python chain.
+// raises.
 //
 // sbr_chain_cond: the SBR cond planes of a group's channels
 // (sbr_host.SbrFrameCond, stacked over channels) filled from those
@@ -103,7 +103,7 @@ void sbr_chain_set_tables(const double* e1, const double* e2,
 // channel c and frame f, channel-major over G frames: grid[c][f][32]
 // (sbr_parse_payload's layout), E[c][f][MAXENV][NB] and Q[c][f][2][NQ]
 // float64 levels, invf[c][f][NQ], harm[c][f][NB].  Returns 1, or 0
-// where the Python chain must take the group.
+// where it declines the group.
 int sbr_chain_parse(
     const uint8_t* bytes, int64_t stride, const int32_t* nbits,
     const int32_t* crc, int n, int stereo, const int32_t* hdr, int have_hdr,
@@ -220,10 +220,9 @@ int sbr_chain_parse(
 }
 
 // The cond planes of C channels over F frames.  nf[c]: channel c's
-// frames in the parse arrays (0: none, a dead stream; < 0: the Python
-// chain fills that channel, skipped here).  The planes arrive holding
-// SbrFrameCond's defaults.  Static: the band tables of the call's
-// header.  State per channel, advanced: prev_invf[5], bw[5],
+// frames in the parse arrays (0: none, a dead stream).  The planes
+// arrive holding SbrFrameCond's defaults.  Static: the band tables of
+// the call's header.  State per channel, advanced: prev_invf[5], bw[5],
 // noise_index, sine_index, prev_harm[64] (a mask over bins), prev_tran,
 // first.
 void sbr_chain_cond(
@@ -240,7 +239,6 @@ void sbr_chain_cond(
     int8_t* env_id, int8_t* prev_id, float* r, float* last_env,
     int32_t* noise_idx0, int32_t* sine_ph0, float* bwk, float* carry_mask) {
     for (int c = 0; c < C; c++) {
-        if (nf[c] < 0) continue;
         noise_idx0[c] = (int32_t)noise_index[c];
         sine_ph0[c] = (int32_t)sine_index[c];
         for (int f = 0; f < nf[c] && f < F; f++) {

@@ -17,7 +17,7 @@ leg: phase 16's 16 ``ps_content`` streams through one
    call, the serving loop with ``torch.cuda.synchronize()`` after each
    stage, each stage's seconds summed over the groups.  HE-AAC v1: the
    per-group parse (the native unpacker and the side rows), the SBR
-   payloads' parse and dequantisation (``serving._sbr_frames``), the cond
+   payloads' parse and dequantisation (``sbr_chain.sbr_frames``), the cond
    build (``SbrDeviceRunner._build_stacked_cond``), upload, the group pass
    (``synthesis.decode_planes``, the SBR group
    ``sbr.device_decode_group`` and the rounding), copy-back.  The PS leg
@@ -57,7 +57,7 @@ import torch
 
 from .. import bench_secondary
 from ..codecs.aac import sbr as sbrd
-from ..codecs.aac import serving
+from ..codecs.aac import sbr_chain, serving
 from ..codecs.aac import synthesis as syn
 from . import recorded, smoke
 from .profile_mp3_vorbis import Clock, profile, traced
@@ -83,8 +83,8 @@ def staged_he(streams: list, G: int, dev) -> dict:
             clock("parse")
             per_ch = [([], [], []) for _ in range(len(streams) * nch)]
             for (s, _n), payloads in zip(counts, planes["sbr"]):
-                serving._sbr_frames(decs[s], s, payloads, nch, None,
-                                    per_ch[s * nch:(s + 1) * nch])
+                sbr_chain.sbr_frames(decs[s], s, payloads, nch, None,
+                                     per_ch[s * nch:(s + 1) * nch])
             clock("sbr_parse_dequant")
             if runner is None:
                 runner = sbrd.SbrDeviceRunner(decs[0], len(per_ch),

@@ -40,8 +40,8 @@ from ohpipeline_tpu_torch._host import aac_sbr as SBR
 from ohpipeline_tpu_torch._host import aac_bitstream, sbr_native
 from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
 from ohpipeline_tpu_torch.codecs.aac import synthesis as SYN
-from ohpipeline_tpu_torch.codecs.aac.serving import (_sbr_frames, iter_groups,
-                                                     to_device)
+from ohpipeline_tpu_torch.codecs.aac.sbr_chain import sbr_frames
+from ohpipeline_tpu_torch.codecs.aac.serving import iter_groups, to_device
 
 DATA = (pathlib.Path(__file__).resolve().parent / "assets"
         / "dryrun_he.aac").read_bytes()
@@ -75,7 +75,7 @@ def _real_groups(count):
     runner, out = None, []
     for planes, counts in iter_groups([DATA], G, sbr=True):
         per_ch = [([], [], []) for _ in range(NCH)]
-        _sbr_frames(dec, 0, planes["sbr"][0], NCH, None, per_ch)
+        sbr_frames(dec, 0, planes["sbr"][0], NCH, None, per_ch)
         if runner is None:
             runner = sbrd.SbrDeviceRunner(dec, NCH, device="cpu")
         consts = SYN.device_constants(planes["rate_index"], device="cpu")

@@ -1,21 +1,22 @@
 """The HE-AAC serving call (``decode_he_streams_device``) with its native SBR
-chain and without it: with the chain's native entry points made
-unavailable, every stream's group runs through the Python chain, the PCM
-is the same to the bit and the counter ``fallback.sbr`` counts each
-stream's group that has frames; with the library built it reads 0 on the
-asset.  The call's six ``ValueError`` cases raise the same message either
-way (payloads rewritten at the bit level where no stream in the repo has
-the fault), and a logical mesh's blocks give what ``mesh=None`` gives."""
+chain: ragged streams in groups of 48 and 16 frames, and streams whose
+every header was rewritten to smoothing on, are held against
+``SbrDecoder.process_frame`` (the numpy float64 chain) fed the core PCM
+the call decoded; the counter ``frames.sbr`` counts the asset's frames.
+The call's six ``ValueError`` cases raise their exact messages (payloads
+rewritten at the bit level where no stream in the repo has the fault),
+a logical mesh's blocks give what ``mesh=None`` gives, and the HE cell of
+``ohp_bench`` comes out not correct where the host cond state is not
+carried across groups."""
 
-import math
 import pathlib
 
 import numpy as np
 import pytest
 
 from ohpipeline_tpu_torch import _host, parallel, tracing
+from ohpipeline_tpu_torch.codecs.aac import sbr as sbrd
 from ohpipeline_tpu_torch.codecs.aac import sbr_chain, serving
-from ohpipeline_tpu_torch.host import native
 
 ASSETS = pathlib.Path(__file__).resolve().parent / "assets"
 DATA = (ASSETS / "dryrun_he.aac").read_bytes()
@@ -39,38 +40,62 @@ def _ragged() -> list:
             DATA[off[20]:off[30]] + DATA[off[10]:off[20]]]
 
 
-def _fallbacks(fn):
-    before = tracing.snapshot().get("fallback.sbr", 0)
-    out = fn()
-    return out, tracing.snapshot()["fallback.sbr"] - before
+def _against_numpy_chain(streams: list, G: int, monkeypatch) -> None:
+    """The serving call on ``streams`` in groups of G against
+    ``SbrDecoder.process_frame`` fed the core PCM the call decoded and the
+    SBR payloads its groups held: within the numpy chain's bound
+    (``test_torch_aac_he_serving._against_numpy_sbr_chain``'s), and the
+    int16 output that float output rounded and clipped."""
+    seen, payloads = [], [[] for _ in streams]
+    real_groups, real_decode = serving.iter_groups, sbrd.device_decode_group
 
+    def iter_groups(streams_, G_, *, sbr=False):
+        for planes, counts in real_groups(streams_, G_, sbr=sbr):
+            for (s, _), pl in zip(counts, planes["sbr"]):
+                payloads[s].extend(pl)
+            yield planes, counts
 
-def _python_chain(monkeypatch):
-    monkeypatch.setattr(native, "sbr_chain_lib", lambda: None)
+    def record(static, pcm, cond, state):
+        out, new_state = real_decode(static, pcm, cond, state)
+        seen.append((pcm.numpy().copy(), out.numpy().copy()))
+        return out, new_state
+
+    monkeypatch.setattr(serving, "iter_groups", iter_groups)
+    monkeypatch.setattr(sbrd, "device_decode_group", record)
+    got = serving.decode_he_streams_device(streams, G, device="cpu")
+    core = np.concatenate([p for p, _ in seen], axis=1)     # (C, F, 1024)
+    out = np.concatenate([o for _, o in seen], axis=1)
+    for s, pcm16 in enumerate(got):
+        dec = _host.aac_sbr.SbrDecoder(22050)
+        cols = slice(s * NCH, (s + 1) * NCH)
+        ref = []
+        for f, (payload, nbits, crc) in enumerate(payloads[s]):
+            chans, coupling = dec.parse_payload(payload, nbits, stereo=True,
+                                                crc=crc)
+            ref.append(dec.process_frame(core[cols, f].astype(np.float64),
+                                         chans, coupling))
+        ref = np.concatenate(ref, axis=1)
+        assert ref.shape == pcm16.shape == (NCH, len(payloads[s]) * 2048)
+        err = out[cols, :ref.shape[1]] - ref
+        assert np.abs(err).max() / max(np.abs(ref).max(), 1.0) < 2e-3, s
+        assert np.sqrt((err ** 2).mean() / (ref ** 2).mean()) < 5e-4, s
+        np.testing.assert_array_equal(
+            pcm16, np.clip(np.rint(out[cols, :ref.shape[1]]), -32768,
+                           32767).astype(np.int32))
 
 
 @pytest.mark.parametrize("G", [48, 16])
 def test_the_python_chain_gives_the_same_pcm(G, monkeypatch):
-    streams = _ragged()
-    got, n = _fallbacks(lambda: serving.decode_he_streams_device(
-        streams, G, device="cpu"))
-    assert n == 0
-    _python_chain(monkeypatch)
-    want, n = _fallbacks(lambda: serving.decode_he_streams_device(
-        streams, G, device="cpu"))
-    frames = [46, 82, 118, 20]
-    assert n == sum(math.ceil(f / G) for f in frames)
-    for g, w, f in zip(got, want, frames):
-        assert g.shape == (NCH, f * 2048)
-        np.testing.assert_array_equal(g, w)
+    """The ragged streams within the numpy chain's bound of it."""
+    _against_numpy_chain(_ragged(), G, monkeypatch)
 
 
 def test_the_counter_reads_zero_on_the_asset():
+    """``frames.sbr`` counts the asset's 46 frames."""
     _host.sbr_native()
     before = tracing.snapshot()
     out, = serving.decode_he_streams_device([DATA], 48, device="cpu")
     after = tracing.snapshot()
-    assert after["fallback.sbr"] == before.get("fallback.sbr", 0)
     assert after["frames.sbr"] - before.get("frames.sbr", 0) == 46
     assert out.shape == (NCH, 46 * 2048) and out.any()
 
@@ -166,26 +191,15 @@ def test_errors_raise_as_the_python_chain_raises(case, monkeypatch):
     streams = streams() if callable(streams) else streams
     if edit is not None:
         _edited(monkeypatch, edit)
-    with pytest.raises(ValueError, match=f"^{message}$") as native_err:
+    with pytest.raises(ValueError, match=f"^{message}$"):
         serving.decode_he_streams_device(streams, G, device="cpu")
-    _python_chain(monkeypatch)
-    with pytest.raises(ValueError) as python_err:
-        serving.decode_he_streams_device(streams, G, device="cpu")
-    assert str(native_err.value) == str(python_err.value)
 
 
 def test_rewritten_headers_decode_alike(monkeypatch):
     """Every header of every stream given smoothing: one header config, so
-    the call decodes, natively and in Python alike."""
+    the call decodes, within the numpy chain's bound."""
     _edited(monkeypatch, lambda s, gi, pl: _smoothing_on(pl))
-    streams = _ragged()
-    got, n = _fallbacks(lambda: serving.decode_he_streams_device(
-        streams, 16, device="cpu"))
-    assert n == 0
-    _python_chain(monkeypatch)
-    want = serving.decode_he_streams_device(streams, 16, device="cpu")
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
+    _against_numpy_chain(_ragged(), 16, monkeypatch)
 
 
 # -- mesh= blocks -----------------------------------------------------------
@@ -194,8 +208,27 @@ def test_rewritten_headers_decode_alike(monkeypatch):
 def test_mesh_blocks_equal_mesh_none(devices):
     streams = _ragged()
     want = serving.decode_he_streams_device(streams, 16, device="cpu")
-    got, n = _fallbacks(lambda: serving.decode_he_streams_device(
-        streams, 16, mesh=parallel.make_mesh(devices=devices)))
-    assert n == 0
+    got = serving.decode_he_streams_device(
+        streams, 16, mesh=parallel.make_mesh(devices=devices))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# -- the host cond state ----------------------------------------------------
+
+def test_host_cond_state_not_carried_comes_out_not_correct(monkeypatch):
+    """Every group's cond built from a new ``CondState``, the host half of
+    the state ``ohp_bench``'s planted fault ``state_not_carried`` drops
+    (that fault renews the device runner): the HE cell's comparison, at
+    its CPU test size, fails on the PCM."""
+    from ohp_bench import run
+
+    real = sbr_chain.SbrGroup.cond
+    monkeypatch.setattr(sbr_chain.SbrGroup, "cond",
+                        lambda self, static, state: real(
+                            self, static, sbr_chain.CondState(self.C)))
+    cell = "he_aac_radio.batch"
+    small = run.load_json(run.ROOT / "tests" / "small" / f"{cell}.json")
+    line = run.run_cell(cell, 2 ** 31 + 11, 0.5, False, "cpu", small)
+    gap = line["checks"]["pcm_gap_lsb"]
+    assert not line["correct"] and gap["value"] > gap["limit"], gap
