@@ -9,7 +9,9 @@ group each stream parses once, and the native unpacker
 spectral positions as zigzag nibbles, with per-band scalefactor bytes, M/S
 bitmasks, pooled short-window scalefactors, escape triples for |q| > 7 and
 the TnsPool planes of TNS rows; the remaining exception rows (PNS,
-intensity) are prepared on the host into a float32 side plane.  One device
+intensity) are prepared natively on the host, one call a stream's group
+(``native.aac_side_rows``, with the PNS noise numpy's), into a float32
+side plane (counter ``side_rows.serve``).  One device
 pass (``synthesis.decode_chunk_zz``) then synthesises every stream's frames,
 with the overlap carried across groups on the device.
 
@@ -108,25 +110,15 @@ def _padded(src: np.ndarray, n: int, floor: int, fill) -> np.ndarray:
     return out
 
 
-def _side_rows(b: dict, special, nch: int, SC: int, col0: int, side, srow,
-               n_side: int) -> int:
-    """Host-prepare one stream's special rows into the side plane from
-    slot ``n_side`` on; returns the next free slot."""
-    frames = np.unique(np.asarray(special) // nch)
-    idx = np.asarray([f * nch + cc for f in frames for cc in range(nch)])
-    sub = {key: b[key][idx] for key in
-           ("ics", "cb", "sf", "quant", "tnsn", "tnsp", "tnsc")}
-    sub["msmask"] = b["msmask"][frames]
-    sub["rate_index"] = b["rate_index"]
-    sp, _ = SYN.prepare_group(sub, len(frames), nch,
-                              np.zeros(nch, np.int32))
-    fmap = {int(f): j for j, f in enumerate(frames)}
-    for r in special:
-        f, cc = divmod(int(r), nch)
-        side[n_side] = sp[fmap[f], cc]
-        srow[n_side] = f * SC + col0 + cc
-        n_side += 1
-    return n_side
+def _side(native, pbuf: dict, special, nch: int, SC: int, col0: int):
+    """One stream's side rows of a group, prepared natively from its parse
+    buffer: (side (n, 1024) float32, srow (n,) int32), with the PNS noise
+    drawn by ``synthesis._pns_noise``."""
+    draws = native.aac_side_draws(pbuf, special, nch)
+    noise = np.concatenate([np.zeros(0)] + [SYN._pns_noise(r, p, n)
+                                            for r, p, n in draws.tolist()])
+    count("side_rows.serve", len(special))
+    return native.aac_side_rows(pbuf, special, nch, noise, sc=SC, col0=col0)
 
 
 def iter_groups(streams: list, frames_per_group: int = 64, *,
@@ -192,10 +184,9 @@ def iter_groups(streams: list, frames_per_group: int = 64, *,
                     lst.count.value = c
                 pshape[s][:] = shape0
             if len(special):
-                sides.append(np.empty((len(special), 1024), np.float32))
-                srows.append(np.empty(len(special), np.int32))
-                _side_rows(pbuf, special, nch, SC, s * nch, sides[-1],
-                           srows[-1], 0)
+                side, srow = _side(native, pbuf, special, nch, SC, s * nch)
+                sides.append(side)
+                srows.append(srow)
         esc, ssfv, tnsv = lists
         ne = esc.count.value
         side = np.concatenate([np.zeros((0, 1024), np.float32)] + sides)

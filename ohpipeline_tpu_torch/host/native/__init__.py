@@ -9,9 +9,11 @@ III Huffman decode (``mp3_core.cc``), the Vorbis residue walk
 (``vorbis_core.cc``), the SILK packet parse and fixed-point synthesis
 (``silk_core.cc``, ``silk_parse.cc``, ``silk_synth.cc``) and the ALAC
 residual decode and predictor (``alac_core.cc``).  The ``.cc`` files are
-byte copies of the JAX package's.  Where the JAX loader returns None for a
-library that does not build, so its ``have_*`` checks read False, this one
-raises, so they read True or raise.
+byte copies of the JAX package's, but for the port's own ``sbr_chain.cc``
+(the HE serving call's SBR chain) and ``aac_side.cc`` (the AAC serving
+calls' side rows), each built into one library with the copy it includes.
+Where the JAX loader returns None for a library that does not build, so its
+``have_*`` checks read False, this one raises, so they read True or raise.
 
 Each library is compiled into ``ohpipeline_tpu_torch/_build/`` under a name
 that carries a hash of its sources and flags, so an edited source rebuilds.
@@ -128,7 +130,9 @@ _AAC_KEEPALIVE: list = []
 
 
 def _aac_lib() -> ctypes.CDLL | None:
-    lib = _load("aacunpack", ["aac_unpack.cc"])
+    # aac_side.cc includes aac_unpack.cc: one library for the unpacker and
+    # the serving call's side rows
+    lib = _load("aacunpack", ["aac_side.cc"], includes=("aac_unpack.cc",))
     if lib is None:
         return None
     if not getattr(lib, "_sigs_set", False):
@@ -198,6 +202,7 @@ def _aac_lib() -> ctypes.CDLL | None:
         _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
         lib.aac_tns_group.argtypes = [
             _f64p, ctypes.c_int, _i32p, _i32p, _i32p, _f32p, ctypes.c_int]
+        _aac_side_setup(lib)
         lib._sigs_set = True
     global _AAC_TABLES_SET
     if not _AAC_TABLES_SET:
@@ -230,6 +235,93 @@ def _aac_lib() -> ctypes.CDLL | None:
 
 def have_aac_unpack() -> bool:
     return _aac_lib() is not None
+
+
+#: Scalefactors the side rows' tables cover: [-_AAC_SF_LEVELS,
+#: _AAC_SF_LEVELS); one outside is computed with the C library's pow.
+_AAC_SF_LEVELS = 512
+
+
+def _aac_side_setup(lib) -> None:
+    """The side rows' signatures, and their tables: |q|^(4/3) for
+    |q| < 8192 and the gains, PNS energies and intensity scales, each
+    computed by numpy as ``synthesis.prepare_group`` computes it."""
+    from ..codecs.aac import tables as T
+    lib.aac_side_set_tables.argtypes = [_f64p] * 4 + [ctypes.c_int]
+    lib.aac_side_draws.restype = ctypes.c_int
+    lib.aac_side_draws.argtypes = [_i32p, _i8p, ctypes.c_int, ctypes.c_int,
+                                   _i32p, ctypes.c_int, _i32p]
+    lib.aac_side_rows.restype = ctypes.c_int
+    lib.aac_side_rows.argtypes = [
+        _i32p, _i8p, _i32p, _i32p, _u8p, _i32p, _i32p, _f32p,
+        ctypes.c_int, ctypes.c_int, _i32p, ctypes.c_int,
+        _f64p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, _f32p, _i32p]
+    sf = np.arange(-_AAC_SF_LEVELS, _AAC_SF_LEVELS, dtype=np.int32)
+    tabs = [np.arange(8192, dtype=np.float64) ** (4.0 / 3.0),
+            np.exp2(0.25 * (sf.astype(np.float64) - T.SF_OFFSET)),
+            np.array([2.0 ** (0.25 * v) for v in sf]),
+            0.5 ** (0.25 * sf)]
+    _AAC_KEEPALIVE.extend(tabs)
+    lib.aac_side_set_tables(*tabs, _AAC_SF_LEVELS)
+
+
+#: The parse buffer's planes the side rows read, with their dtypes.
+_SIDE_PLANES = (("ics", np.int32), ("cb", np.int8), ("sf", np.int32),
+                ("quant", np.int32), ("msmask", np.uint8),
+                ("tnsn", np.int32), ("tnsp", np.int32), ("tnsc", np.float32))
+
+
+def _side_planes(batch: dict, special: np.ndarray, channels: int) -> list:
+    """``batch``'s side planes, after checking that ``special`` rows and
+    their frames' other channels lie inside them and that the rate index
+    is one of the 13."""
+    planes = [np.ascontiguousarray(batch[k], dt) for k, dt in _SIDE_PLANES]
+    assert 0 <= int(batch["rate_index"]) < 13, batch["rate_index"]
+    if len(special):
+        assert int(special.min()) >= 0, int(special.min())
+        frames = int(special.max()) // channels + 1
+        for (k, _), a in zip(_SIDE_PLANES, planes):
+            need = frames if k == "msmask" else frames * channels
+            assert len(a) >= need, (k, len(a), need)
+    return planes
+
+
+def aac_side_draws(batch: dict, special: np.ndarray,
+                   channels: int) -> np.ndarray:
+    """The PNS draws of one stream's side rows (``special``, the rows
+    ``aac_prepare_rows_zz`` returned for ``batch``): (n, 3) int32 of
+    (row, pos, n), ``synthesis._pns_noise``'s arguments, in the order
+    :func:`aac_side_rows` takes the noise.  ``batch`` is a parse buffer of
+    ``aac_parse_group`` or ``aac_parse_group_sbr``."""
+    lib = _aac_lib()
+    special = np.ascontiguousarray(special, np.int32)
+    ics, cb = _side_planes(batch, special, channels)[:2]
+    draws = np.empty((len(special) * channels, 3), np.int32)
+    n = lib.aac_side_draws(ics, cb, batch["rate_index"], channels, special,
+                           len(special), draws)
+    return draws[:n]
+
+
+def aac_side_rows(batch: dict, special: np.ndarray, channels: int,
+                  noise: np.ndarray, *, sc: int,
+                  col0: int) -> tuple[np.ndarray, np.ndarray]:
+    """``batch``'s ``special`` rows (f * channels + c) prepared as
+    ``synthesis.prepare_group`` prepares them over the sub-batch of their
+    frames: (side (n, 1024) float32, srow (n,) int32 = f * sc + col0 + c).
+    ``noise`` (float64) holds the draws :func:`aac_side_draws` listed, one
+    after another."""
+    lib = _aac_lib()
+    special = np.ascontiguousarray(special, np.int32)
+    noise = np.ascontiguousarray(noise, np.float64)
+    side = np.empty((len(special), 1024), np.float32)
+    srow = np.empty(len(special), np.int32)
+    planes = _side_planes(batch, special, channels)
+    rc = lib.aac_side_rows(*planes, batch["rate_index"], channels, special,
+                           len(special), noise, len(noise), sc, col0, side,
+                           srow)
+    if rc != 0:
+        raise ValueError("PNS noise does not match the side rows' draws")
+    return side, srow
 
 
 SFB_SLOTS = 128  # must match aac_unpack.cc (8 groups x 15 stride + mask byte)

@@ -24,7 +24,7 @@ import chip_smoke
 from ohpipeline_tpu_torch import _kernels
 from ohpipeline_tpu_torch._host import aac_native
 from ohpipeline_tpu_torch.codecs.aac import synthesis as SYN
-from ohpipeline_tpu_torch.codecs.aac.serving import _side_rows
+from ohpipeline_tpu_torch.codecs.aac import serving as SERVING
 
 DATA = (pathlib.Path(__file__).resolve().parent / "assets"
         / "dryrun.aac").read_bytes()
@@ -594,6 +594,173 @@ def test_tns_scan_rejects_unknown_device_and_kernel_rejects_cpu():
         _kernels.tns(*_t(spec, tfi, tco, tdir, trow))
 
 
+# --- the serving call's side rows: native against prepare_group -----------
+
+def _side_rows_oracle(b: dict, special, nch: int, SC: int, col0: int):
+    """One stream's side rows as the JAX package's ``prepare_group`` makes
+    them over the sub-batch of the frames holding a special row, which the
+    port's ``prepare_group`` must make equal.  Returns (side, srow)."""
+    frames = np.unique(np.asarray(special) // nch)
+    idx = np.asarray([f * nch + cc for f in frames for cc in range(nch)])
+    sub = {key: b[key][idx] for key in
+           ("ics", "cb", "sf", "quant", "tnsn", "tnsp", "tnsc")}
+    sub["msmask"] = b["msmask"][frames]
+    sub["rate_index"] = b["rate_index"]
+    sp, _ = _jsyn().prepare_group(sub, len(frames), nch,
+                                  np.zeros(nch, np.int32))
+    port, _ = SYN.prepare_group(sub, len(frames), nch,
+                                np.zeros(nch, np.int32))
+    assert port.dtype == sp.dtype
+    np.testing.assert_array_equal(port, sp)
+    fmap = {int(f): j for j, f in enumerate(frames)}
+    side = np.empty((len(special), 1024), np.float32)
+    srow = np.empty(len(special), np.int32)
+    for i, r in enumerate(special):
+        f, cc = divmod(int(r), nch)
+        side[i] = sp[fmap[f], cc]
+        srow[i] = f * SC + col0 + cc
+    return side, srow
+
+
+def _special(b: dict, n: int, G: int, nch: int, pool: bool = True):
+    """The special rows ``aac_prepare_rows_zz`` hands back for ``b``: PNS
+    and intensity rows, and without a TnsPool the TNS rows too."""
+    native = aac_native()
+    special = native.aac_prepare_rows_zz(
+        b, n, G, nch, np.zeros(nch, np.int32), native.EscapeList(16384),
+        native.ShortSfPool(G * nch), q4=np.zeros((G, nch, 512), np.uint8),
+        sfb=np.zeros((G, nch, 64), np.uint8),
+        msb=np.zeros((G, nch // 2, 128), np.uint8),
+        opx=np.zeros((G, nch), np.uint8), col0=0, max_special=G * nch,
+        tns=native.TnsPool(G * nch) if pool else None)
+    assert special is not None
+    return special
+
+
+def _assert_side_rows_match(b: dict, special, nch: int) -> None:
+    """The native side rows within 1e-6 of each row's peak of the oracle's,
+    and their rows equal, at a stream's columns 3 * nch on of 5 streams."""
+    got, got_rows = SERVING._side(aac_native(), b, special, nch, 5 * nch,
+                                  3 * nch)
+    want, want_rows = _side_rows_oracle(b, special, nch, 5 * nch, 3 * nch)
+    np.testing.assert_array_equal(got_rows, want_rows)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    for i in range(len(special)):
+        peak = float(np.abs(want[i]).max())
+        assert peak > 0, int(special[i])
+        err = float(np.abs(got[i].astype(np.float64) - want[i]).max())
+        assert err <= 1e-6 * peak, (int(special[i]), err, peak)
+
+
+@pytest.mark.parametrize("pool", [True, False], ids=["pool", "tns_rows"])
+@pytest.mark.parametrize("G", [4, 16, 64])
+def test_native_side_rows_match_prepare_group(G, pool):
+    """Every special row of dryrun.aac's groups of G frames: its PNS rows
+    (frames 87-88, with TNS and M/S), and without a TnsPool its TNS rows
+    too (frame 1's short windows, frame 2's long stop)."""
+    pos, rows = 0, 0
+    while True:
+        n, pos, b = _parse(G, pos)
+        if n == 0:
+            break
+        special = _special(b, n, G, NCH, pool)
+        if len(special):
+            _assert_side_rows_match(b, special, NCH)
+            rows += len(special)
+        if n < G:
+            break
+    assert rows == (4 if pool else 8)
+
+
+def _edited(frame: int, edit) -> tuple:
+    """dryrun.aac's first 16 frames, with ``edit(b, left, right, ms)``
+    applied to frame ``frame``'s rows (views of its cb, sf and msmask
+    rows: (cb, sf) per channel)."""
+    n, _, b = _parse(16)
+    b = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+         for k, v in b.items()}
+    rl, rr = frame * NCH, frame * NCH + 1
+    edit((b["cb"][rl], b["sf"][rl]), (b["cb"][rr], b["sf"][rr]),
+         b["msmask"][frame])
+    return b, n
+
+
+def _intensity(flag):
+    # frame 5: both channels code bands 4-13
+    def edit(left, right, ms):
+        cb, sf = right
+        cb[4:8] = (15, 15, 14, 14)
+        sf[4:8] = (-6, 3, 0, 12)
+        ms[0] = flag
+        ms[1 + 4:1 + 8] = (1, 0, 1, 0)
+        ms[1 + 8:1 + 14] = 1
+    return edit
+
+
+def _noise_beside_ms(flag):
+    # frame 7: both channels code bands 0-13
+    def edit(left, right, ms):
+        right[0][10], right[1][10] = 13, 60
+        left[0][11:13], left[1][11:13] = 13, (70, -4)
+        ms[0] = flag
+        ms[1 + 8:1 + 14] = 1
+    return edit
+
+
+def _short_noise(left, right, ms):
+    # frame 1: eight short windows in groups of 3, 1, 3, 1 (grouping 102),
+    # 12 bands, M/S flag 1
+    for g, k, e in ((0, 3, 40), (1, 4, 52), (2, 6, 33), (3, 9, 61)):
+        left[0][g * 15 + k], left[1][g * 15 + k] = 13, e
+    right[0][15 + 5], right[1][15 + 5] = 13, 45
+    for k, cb, sf, on in ((1, 15, -2, 1), (2, 14, 5, 0), (3, 15, 9, 0)):
+        right[0][30 + k], right[1][30 + k], ms[1 + 30 + k] = cb, sf, on
+
+
+def _tns_noise(left, right, ms):
+    # frame 2: a long stop window with TNS on both channels
+    left[0][30:33], left[1][30:33] = 13, (20, 21, 22)
+
+
+SIDE_CASES = {
+    "short_window_noise": (1, _short_noise),
+    "intensity_ms_flag1": (5, _intensity(1)),
+    "intensity_ms_flag2": (5, _intensity(2)),
+    "intensity_without_ms": (5, _intensity(0)),
+    "noise_beside_ms_flag1": (7, _noise_beside_ms(1)),
+    "noise_beside_ms_flag2": (7, _noise_beside_ms(2)),
+    "tns_noise": (2, _tns_noise),
+}
+
+
+@pytest.mark.parametrize("case", list(SIDE_CASES))
+def test_native_side_rows_match_prepare_group_on_edited_frames(case):
+    """Paths the asset lacks: noise on short windows, intensity bands of
+    both codebooks under each M/S flag, M/S beside noise bands, noise on a
+    TNS row."""
+    frame, edit = SIDE_CASES[case]
+    b, n = _edited(frame, edit)
+    special = _special(b, n, 16, NCH)
+    assert frame * NCH + 1 in special or frame * NCH in special
+    _assert_side_rows_match(b, special, NCH)
+
+
+def test_native_side_rows_match_prepare_group_mono():
+    """A mono batch: the left channel of dryrun.aac's frames 64-88, with its
+    PNS rows and an edited noise band on a short window (frame 1)."""
+    n0, pos, _ = _parse(64)
+    n, _, b = _parse(25, pos)
+    _, _, head = _parse(2)
+    mono = {k: (np.ascontiguousarray(v[0::2]) if k not in
+                ("msmask", "rate_index") else v) for k, v in b.items()}
+    for k in ("ics", "cb", "sf", "quant", "tnsn", "tnsp", "tnsc"):
+        mono[k][0] = head[k][2]
+    mono["cb"][0][15 + 4], mono["sf"][0][15 + 4] = 13, 50
+    special = _special(mono, n, 25, 1)
+    np.testing.assert_array_equal(special, [0, 23, 24])
+    _assert_side_rows_match(mono, special, 1)
+
+
 # --- decode_chunk_zz: against JAX and the f64 reference --------------------
 
 def _zz_planes(G, with_pool):
@@ -613,10 +780,10 @@ def _zz_planes(G, with_pool):
         b, n, G, NCH, np.zeros(NCH, np.int32), esc, ssf, q4=q4, sfb=sfb,
         msb=msb, opx=opx, col0=0, max_special=G * NCH, tns=tns)
     assert special is not None
-    side = np.zeros((max(1, len(special)), 1024), np.float32)
-    srow = np.full(len(side), -1, np.int32)
+    side = np.zeros((1, 1024), np.float32)
+    srow = np.full(1, -1, np.int32)
     if len(special):
-        _side_rows(b, special, NCH, NCH, 0, side, srow, 0)
+        side, srow = SERVING._side(native, b, special, NCH, NCH, 0)
     planes = [q4, sfb, ssf.sf, ssf.row, msb, opx, esc.row, esc.pos, esc.val,
               side, srow]
     tns_planes = [tns.tfi, tns.tco, tns.tdir, tns.row] if with_pool else []

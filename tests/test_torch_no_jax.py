@@ -315,8 +315,10 @@ def test_port_runs_from_a_directory_without_the_jax_package(stage, tmp_path):
 
 
 #: The port's own native sources beside the copies: ``sbr_chain.cc`` (the HE
-#: serving call's SBR chain) includes the copy ``sbr_parse.cc`` unchanged.
-PORT_SOURCES = {"native/sbr_chain.cc"}
+#: serving call's SBR chain) includes the copy ``sbr_parse.cc`` unchanged, and
+#: ``aac_side.cc`` (the AAC serving calls' side rows) the copy
+#: ``aac_unpack.cc``.
+PORT_SOURCES = {"native/sbr_chain.cc", "native/aac_side.cc"}
 
 
 def _copies():

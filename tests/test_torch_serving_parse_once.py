@@ -10,6 +10,9 @@ group's wire planes from that group's own parse
   the capacities left as they are.
 - Per-group sizing: every list plane is its group's used prefix, padded to
   the next power of two (at least the plane's floor) with row -1 and zeros.
+- Side rows: the AAC-LC and HE serving calls prepare their PNS and
+  intensity rows natively, never through ``synthesis.prepare_group``;
+  ``side_rows.serve`` counts the special rows of the call's parse.
 """
 
 import os
@@ -19,6 +22,7 @@ import pytest
 
 from ohpipeline_tpu_torch import _host, tracing
 from ohpipeline_tpu_torch.codecs.aac import serving as aac_serving
+from ohpipeline_tpu_torch.codecs.aac import synthesis as aac_synthesis
 from ohpipeline_tpu_torch.codecs.flac import serving as flac_serving
 from test_torch_flac_rice import CONTENT
 
@@ -166,3 +170,45 @@ def test_each_list_plane_is_its_groups_used_prefix(codec):
             sizes.setdefault(row, set()).add(len(rows))
     # the groups' lengths differ: each is sized by its own parse
     assert any(len(s) > 1 for s in sizes.values()), sizes
+
+
+def _no_prepare_group(*args, **kwargs):
+    raise AssertionError("a serving call ran synthesis.prepare_group")
+
+
+def test_side_rows_are_native_and_counted(monkeypatch):
+    """An AAC-LC call over content with dryrun.aac's PNS frames (87-88):
+    ``side_rows.serve`` is the special rows its parse handed back, and
+    ``prepare_group`` never runs."""
+    streams, nframes = _aac_content((89, 60, 75))
+    special = []
+    native = _host.aac_native()
+    real = native.aac_prepare_rows_zz
+
+    def prepare(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if out is not None:
+            special.append(len(out))
+        return out
+
+    monkeypatch.setattr(native, "aac_prepare_rows_zz", prepare)
+    monkeypatch.setattr(aac_synthesis, "prepare_group", _no_prepare_group)
+    with tracing.recording() as rec:
+        out = _serve("aac", streams)
+    assert [o.shape[1] for o in out] == [1024 * n for n in nframes]
+    assert sum(special) > 0
+    assert rec.counters["side_rows.serve"] == sum(special)
+
+
+def test_side_rows_read_zero_in_an_he_call(monkeypatch):
+    """dryrun_he.aac has no PNS or intensity row: the HE call counts none,
+    and runs no ``prepare_group`` either."""
+    with open(os.path.join(os.path.dirname(ASSET), "dryrun_he.aac"),
+              "rb") as f:
+        data = f.read()
+    monkeypatch.setattr(aac_synthesis, "prepare_group", _no_prepare_group)
+    with tracing.recording() as rec:
+        out, = aac_serving.decode_he_streams_device([data], 16, device="cpu")
+    assert out.shape[1] == 46 * 2048
+    assert rec.counters.get("frames.sbr") == 46
+    assert rec.counters.get("side_rows.serve", 0) == 0
